@@ -1,0 +1,321 @@
+"""The four banded-window clustering passes: CUDA kernels and plain versions.
+
+Each pass has
+
+* a CUDA kernel in ``csrc/window_kernels.cu`` (built for sm_90a at first use
+  by ``_build.py`` and called through ctypes on the current stream),
+* a plain PyTorch version ``<name>_plain`` computing the same function step
+  by step, and
+* a wrapper ``<name>`` that sends CPU tensors to the plain version and CUDA
+  tensors to the kernel — a CUDA tensor launches the kernel or raises.
+
+| wrapper              | replaces (JAX package)                            |
+|----------------------|---------------------------------------------------|
+| neighbor_pack        | pbnet_tpu/ops/pallas_kernels.py:151 neighbor_pack |
+| masked_window_reduce | pallas_kernels.py:77 masked_window_reduce         |
+| masked_window_border | pallas_kernels.py:326 masked_window_border        |
+| window_1nn           | pallas_kernels.py:247 window_1nn                  |
+
+Layouts: rows ``(nchunks, 3, chunk)``; window planes ``(nchunks, P, W)``;
+window values ``(nchunks, W)``; neighbor bit words ``(nchunks, chunk, W/32)``
+int32 holding the uint32 bit pattern (bit b of word w = window column
+32*w + b).  The TPU's bit-lane-major ``(nchunks, 32, NW)`` planes are a
+TPU layout constraint and are not carried over.
+
+``LAUNCHES`` counts kernel launches per wrapper (plain-version calls do not
+count), so a run can show that its main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+INF_I32 = 2**31 - 1
+
+LAUNCHES = {
+    "neighbor_pack": 0,
+    "masked_window_reduce": 0,
+    "masked_window_border": 0,
+    "window_1nn": 0,
+}
+
+_SOURCE = "window_kernels"
+_lib = None
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _library():
+    """The kernel library, built and bound on first use."""
+    global _lib
+    if _lib is None:
+        from .. import _build
+
+        lib = _build.load(_SOURCE)
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.pbnet_neighbor_pack.argtypes = [P, P, P, P, P, P, F, P, P, P, I, I, I, P]
+        lib.pbnet_masked_window_reduce.argtypes = [P, P, P, P, P, I, I, I, I, P]
+        lib.pbnet_masked_window_border.argtypes = [P, P, P, P, P, P, P, P, I, I, I, P]
+        lib.pbnet_window_1nn.argtypes = [P, P, P, P, P, P, P, I, I, I, P]
+        for fn in (lib.pbnet_neighbor_pack, lib.pbnet_masked_window_reduce,
+                   lib.pbnet_masked_window_border, lib.pbnet_window_1nn):
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _check(name, t, dtype, shape, device):
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def _launch(name, fn, *args):
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+    LAUNCHES[name] += 1
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _window_dims(bits):
+    nchunks, chunk, nw = bits.shape
+    return nchunks, chunk, nw * 32
+
+
+# ---------------------------------------------------------------------------
+# bit-word helpers (plain torch)
+# ---------------------------------------------------------------------------
+def pack_bits(mask: torch.Tensor) -> torch.Tensor:
+    """(..., W) bool -> (..., W//32) int32 words holding the uint32 pattern
+    (bit b of word w = position 32*w + b)."""
+    shp = mask.shape[:-1] + (mask.shape[-1] // 32, 32)
+    sh = torch.arange(32, dtype=torch.int64, device=mask.device)
+    words = (mask.reshape(shp).to(torch.int64) << sh).sum(-1)
+    return (words - (words >= 2**31).to(torch.int64) * 2**32).to(torch.int32)
+
+
+def unpack_bits(words: torch.Tensor) -> torch.Tensor:
+    """(..., NW) int32 words -> (..., NW*32) bool."""
+    sh = torch.arange(32, dtype=torch.int64, device=words.device)
+    u = words.to(torch.int64) & 0xFFFFFFFF
+    return (((u[..., None] >> sh) & 1) > 0).reshape(words.shape[:-1] + (-1,))
+
+
+def sq_dist(rx, ry, rz, cx, cy, cz):
+    """Squared distance, unfused and left to right as the JAX package
+    evaluates it."""
+    dx = rx - cx
+    dy = ry - cy
+    dz = rz - cz
+    return (dx * dx + dy * dy) + dz * dz
+
+
+# ---------------------------------------------------------------------------
+# B1 neighbor_pack
+# ---------------------------------------------------------------------------
+def neighbor_pack_plain(r2: float, rows_f, rows_i, w1f, w1i, w2f, w2i):
+    """Packed neighbor words of both windows + density (plain version).
+
+    rows_f (nchunks, 3, chunk) f32 xyz; rows_i (nchunks, 3, chunk) int32
+    (group, valid, global sorted index); w*f (nchunks, 3, W) f32 window xyz;
+    w*i (nchunks, 3, W) int32 (group, column valid [window 2: fresh columns
+    only], global sorted index).  A bit is set iff ``d2 <= r2``, the groups
+    match, the column and the row are valid and the pair is not self.
+    Returns (bits1, bits2) (nchunks, chunk, W/32) int32 and density
+    (nchunks, chunk) int32 = set bits over both windows.
+    """
+    r2t = torch.tensor(r2, dtype=torch.float32, device=rows_f.device)
+    nchunks = rows_f.shape[0]
+    outs = ([], [])
+    dens = []
+    for c in range(nchunks):
+        rx, ry, rz = (rows_f[c, a][:, None] for a in range(3))
+        rg, rv, ridx = (rows_i[c, a][:, None] for a in range(3))
+        cnt = 0
+        for wf, wi, out in ((w1f, w1i, outs[0]), (w2f, w2i, outs[1])):
+            d2 = sq_dist(rx, ry, rz, wf[c, 0][None], wf[c, 1][None], wf[c, 2][None])
+            m = ((d2 <= r2t) & (rg == wi[c, 0][None]) & (wi[c, 1][None] > 0)
+                 & (rv > 0) & (ridx != wi[c, 2][None]))
+            cnt = cnt + m.sum(1, dtype=torch.int32)
+            out.append(pack_bits(m))
+        dens.append(cnt)
+    return torch.stack(outs[0]), torch.stack(outs[1]), torch.stack(dens)
+
+
+def neighbor_pack(r2: float, rows_f, rows_i, w1f, w1i, w2f, w2i):
+    """See :func:`neighbor_pack_plain`; CUDA tensors run the kernel."""
+    if rows_f.device.type == "cpu":
+        return neighbor_pack_plain(r2, rows_f, rows_i, w1f, w1i, w2f, w2i)
+    nchunks, _, chunk = rows_f.shape
+    W = w1f.shape[2]
+    if W % 32 or nchunks > 65535:
+        raise ValueError(f"neighbor_pack: W={W} must be a multiple of 32, nchunks={nchunks} <= 65535")
+    dev = rows_f.device
+    _check("rows_f", rows_f, torch.float32, (nchunks, 3, chunk), dev)
+    _check("rows_i", rows_i, torch.int32, (nchunks, 3, chunk), dev)
+    for nm, t, dt in (("w1f", w1f, torch.float32), ("w2f", w2f, torch.float32),
+                      ("w1i", w1i, torch.int32), ("w2i", w2i, torch.int32)):
+        _check(nm, t, dt, (nchunks, 3, W), dev)
+    bits1 = torch.empty((nchunks, chunk, W // 32), dtype=torch.int32, device=dev)
+    bits2 = torch.empty_like(bits1)
+    dens = torch.empty((nchunks, chunk), dtype=torch.int32, device=dev)
+    lib = _library()
+    _launch("neighbor_pack", lib.pbnet_neighbor_pack,
+            _ptr(rows_f), _ptr(rows_i), _ptr(w1f), _ptr(w1i), _ptr(w2f), _ptr(w2i),
+            ctypes.c_float(r2), _ptr(bits1), _ptr(bits2), _ptr(dens),
+            nchunks, chunk, W)
+    return bits1, bits2, dens
+
+
+# ---------------------------------------------------------------------------
+# B2 masked_window_reduce
+# ---------------------------------------------------------------------------
+def masked_window_reduce_plain(bits1, bits2, vw1, vw2, minimize: bool = True):
+    """best[i, r] = min (or max) of {vw*[i, j] : bit j set in bits*[i, r]}
+    over both windows; INT32_MAX (min) or -1 (max) where no bit is set."""
+    init = INF_I32 if minimize else -1
+    out = []
+    for c in range(bits1.shape[0]):
+        best = None
+        for bits, vw in ((bits1, vw1), (bits2, vw2)):
+            m = unpack_bits(bits[c])
+            cand = torch.where(m, vw[c][None, :], init)
+            red = cand.amin(1) if minimize else cand.amax(1)
+            best = red if best is None else (
+                torch.minimum(best, red) if minimize else torch.maximum(best, red))
+        out.append(best)
+    return torch.stack(out)
+
+
+def masked_window_reduce(bits1, bits2, vw1, vw2, minimize: bool = True):
+    """See :func:`masked_window_reduce_plain`; CUDA tensors run the kernel."""
+    if bits1.device.type == "cpu":
+        return masked_window_reduce_plain(bits1, bits2, vw1, vw2, minimize)
+    nchunks, chunk, W = _window_dims(bits1)
+    dev = bits1.device
+    _check("bits1", bits1, torch.int32, (nchunks, chunk, W // 32), dev)
+    _check("bits2", bits2, torch.int32, (nchunks, chunk, W // 32), dev)
+    _check("vw1", vw1, torch.int32, (nchunks, W), dev)
+    _check("vw2", vw2, torch.int32, (nchunks, W), dev)
+    out = torch.empty((nchunks, chunk), dtype=torch.int32, device=dev)
+    lib = _library()
+    _launch("masked_window_reduce", lib.pbnet_masked_window_reduce,
+            _ptr(bits1), _ptr(bits2), _ptr(vw1), _ptr(vw2), _ptr(out),
+            nchunks, chunk, W, int(bool(minimize)))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# B3 masked_window_border
+# ---------------------------------------------------------------------------
+def masked_window_border_plain(bits1, bits2, fw1, fw2, lw1, lw2):
+    """Per row: ``best`` = max first-orig value over the set bits of both
+    windows, ``root`` = max label over set bits whose first-orig equals
+    ``best``.  Both -1 where no bit is set."""
+    bests, roots = [], []
+    for c in range(bits1.shape[0]):
+        m1, m2 = unpack_bits(bits1[c]), unpack_bits(bits2[c])
+        best = torch.maximum(
+            torch.where(m1, fw1[c][None], -1).amax(1),
+            torch.where(m2, fw2[c][None], -1).amax(1),
+        )
+        h1 = m1 & (fw1[c][None] == best[:, None])
+        h2 = m2 & (fw2[c][None] == best[:, None])
+        root = torch.maximum(
+            torch.where(h1, lw1[c][None], -1).amax(1),
+            torch.where(h2, lw2[c][None], -1).amax(1),
+        )
+        bests.append(best)
+        roots.append(root)
+    return torch.stack(bests), torch.stack(roots)
+
+
+def masked_window_border(bits1, bits2, fw1, fw2, lw1, lw2):
+    """See :func:`masked_window_border_plain`; CUDA tensors run the kernel."""
+    if bits1.device.type == "cpu":
+        return masked_window_border_plain(bits1, bits2, fw1, fw2, lw1, lw2)
+    nchunks, chunk, W = _window_dims(bits1)
+    dev = bits1.device
+    _check("bits1", bits1, torch.int32, (nchunks, chunk, W // 32), dev)
+    _check("bits2", bits2, torch.int32, (nchunks, chunk, W // 32), dev)
+    for nm, t in (("fw1", fw1), ("fw2", fw2), ("lw1", lw1), ("lw2", lw2)):
+        _check(nm, t, torch.int32, (nchunks, W), dev)
+    best = torch.empty((nchunks, chunk), dtype=torch.int32, device=dev)
+    root = torch.empty_like(best)
+    lib = _library()
+    _launch("masked_window_border", lib.pbnet_masked_window_border,
+            _ptr(bits1), _ptr(bits2), _ptr(fw1), _ptr(fw2), _ptr(lw1), _ptr(lw2),
+            _ptr(best), _ptr(root), nchunks, chunk, W)
+    return best, root
+
+
+# ---------------------------------------------------------------------------
+# B4 window_1nn
+# ---------------------------------------------------------------------------
+def window_1nn_plain(rows_f, rows_g, wf, wi, need):
+    """Masked nearest candidate per row over one window.
+
+    rows_f (nchunks, 3, chunk) f32 query xyz; rows_g (nchunks, chunk) int32
+    group; wf (nchunks, 3, W) f32 window xyz; wi (nchunks, 2, W) int32
+    (group, candidate flag); need (nchunks,) int32 needy-row counts.
+    Candidates: flag set and same group.  Returns (d2, col): the least d2
+    and the LARGEST window column attaining it; a row without candidates
+    gets (inf, W-1); a chunk with need == 0 gets (inf, -1) everywhere.
+    """
+    nchunks, _, chunk = rows_f.shape
+    W = wf.shape[2]
+    dev = rows_f.device
+    cols = torch.arange(W, dtype=torch.int32, device=dev)
+    d2s, colss = [], []
+    for c, nd in enumerate(need.tolist()):
+        if nd == 0:
+            d2s.append(torch.full((chunk,), float("inf"), device=dev))
+            colss.append(torch.full((chunk,), -1, dtype=torch.int32, device=dev))
+            continue
+        rx, ry, rz = (rows_f[c, a][:, None] for a in range(3))
+        d2 = sq_dist(rx, ry, rz, wf[c, 0][None], wf[c, 1][None], wf[c, 2][None])
+        ok = (wi[c, 1][None] > 0) & (rows_g[c][:, None] == wi[c, 0][None])
+        d2 = torch.where(ok, d2, float("inf"))
+        best = d2.amin(1)
+        col = torch.where(d2 == best[:, None], cols[None], -1).amax(1)
+        d2s.append(best)
+        colss.append(col)
+    return torch.stack(d2s), torch.stack(colss)
+
+
+def window_1nn(rows_f, rows_g, wf, wi, need):
+    """See :func:`window_1nn_plain`; CUDA tensors run the kernel."""
+    if rows_f.device.type == "cpu":
+        return window_1nn_plain(rows_f, rows_g, wf, wi, need)
+    nchunks, _, chunk = rows_f.shape
+    W = wf.shape[2]
+    if nchunks > 65535:
+        raise ValueError(f"window_1nn: nchunks={nchunks} > 65535")
+    dev = rows_f.device
+    _check("rows_f", rows_f, torch.float32, (nchunks, 3, chunk), dev)
+    _check("rows_g", rows_g, torch.int32, (nchunks, chunk), dev)
+    _check("wf", wf, torch.float32, (nchunks, 3, W), dev)
+    _check("wi", wi, torch.int32, (nchunks, 2, W), dev)
+    _check("need", need, torch.int32, (nchunks,), dev)
+    d2 = torch.empty((nchunks, chunk), dtype=torch.float32, device=dev)
+    col = torch.empty((nchunks, chunk), dtype=torch.int32, device=dev)
+    lib = _library()
+    _launch("window_1nn", lib.pbnet_window_1nn,
+            _ptr(need), _ptr(rows_f), _ptr(rows_g), _ptr(wf), _ptr(wi),
+            _ptr(d2), _ptr(col), nchunks, chunk, W)
+    return d2, col

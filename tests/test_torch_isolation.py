@@ -1,0 +1,84 @@
+"""The port stands alone: no JAX, no pbnet_tpu, no silent CPU fallback.
+
+* Importing pbnet_torch and building and running a model leaves ``jax``,
+  ``flax`` and ``pbnet_tpu`` out of ``sys.modules`` (checked in a fresh
+  subprocess, since this test process imports JAX for the parity tests).
+* No file of the port, nor chip_smoke.py, imports them.
+* An entry point called without ``device`` on a machine without CUDA raises.
+* chip_smoke.py fails, printing no result, without a GPU and outside a
+  checkout of the repository.
+"""
+
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import pbnet_torch
+from pbnet_torch.models.pbnet import PBNet
+from pbnet_torch.synthetic import GRAFT_SHAPES
+
+REPO = Path(__file__).resolve().parents[1]
+FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|pbnet_tpu)\b", re.M)
+
+
+def _env(**kw):
+    env = dict(os.environ, **kw)
+    env.pop("PYTHONPATH", None)
+    return env
+
+
+def test_import_and_run_leave_jax_out():
+    code = (
+        "import sys, numpy as np\n"
+        "import pbnet_torch\n"
+        "from pbnet_torch import convert, synthetic\n"
+        "from pbnet_torch.models.pbnet import PBNet, batch_to_device\n"
+        "from pbnet_torch.ops import cluster, window_kernels\n"
+        "sh = synthetic.GRAFT_SHAPES\n"
+        "m = PBNet(sh, device='cpu', backbone_arch='Mini_Unet', dunet_arch='Mini_Unet',\n"
+        "          score_arch='Mini_Unet')\n"
+        "out = m(batch_to_device(synthetic.synthetic_batch(sh, np.random.RandomState(0)), 'cpu'))\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'flax', 'pbnet_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert "clean" in r.stdout
+
+
+def test_no_jax_imports_in_port_sources():
+    files = sorted((REPO / "pbnet_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 10
+    offenders = [str(f.relative_to(REPO)) for f in files if FORBIDDEN.search(f.read_text())]
+    assert not offenders, offenders
+
+
+def test_entry_point_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PBNet(GRAFT_SHAPES)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pbnet_torch.resolve_device("cuda")
+    assert pbnet_torch.resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("where", ["repo", "alone"])
+def test_chip_smoke_fails_without_gpu_or_repo(tmp_path, where):
+    if where == "repo":
+        cwd = REPO
+    else:  # a directory holding chip_smoke.py and nothing else of the repo
+        cwd = tmp_path
+        shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                       env=_env(CUDA_VISIBLE_DEVICES=""), capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
