@@ -6,8 +6,9 @@
 Phases (each prints its progress; any failed check raises and the script
 exits non-zero — no phase catches its own failure):
 
-1. build     nvcc-compile csrc/window_kernels.cu for sm_90a (one nvcc per
-             source, all started together) and print ptxas's report.
+1. build     nvcc-compile csrc/window_kernels.cu and csrc/onehot_conv.cu for
+             sm_90a (one nvcc per source, all started together) and print
+             ptxas's report.
 2. kernels   one warm-up forward of the bench scene records the arguments
              of each clustering kernel's first call; at those bench shapes
              each kernel must equal its plain PyTorch version exactly (bits,
@@ -15,8 +16,17 @@ exits non-zero — no phase catches its own failure):
              are timed (kernel: median of 20 launches by CUDA events; plain:
              median of 3 calls) beside the kernel's bound (see ``bound``);
              window_1nn is timed again with every chunk needy, as trained
-             content makes it.  Edge cases at small tiles (ties on a 1/8
-             grid, empty rows, need == 0 chunks) are in
+             content makes it.  match_pick (B5, on no path) runs on the
+             border kernel's arguments with its ``best`` output as target:
+             it must equal its plain version exactly and the border kernel's
+             ``root``.  A warm-up forward in the banded configuration
+             records the banded conv's (B6) arguments at every distinct
+             (topology, map kind, level, Cin, Cout) it launches; at each the
+             kernel must agree with its plain version within 1e-4 of the
+             plain output's largest magnitude (the same bf16 operands, f32
+             sums in another order), and kernel, plain version and the
+             port's gather conv on the same map and weights
+             (``library_ms``) are timed.  Edge cases at small tiles are in
              tests/test_torch_cuda.py.
 3. cluster   binary_cluster on the card and on the CPU (plain path) from the
              same reduced bench scene (30k points, oracle semantics; oracle
@@ -26,22 +36,40 @@ exits non-zero — no phase catches its own failure):
              two-instance scene, on the card and on the CPU with the same
              weights and f32 conv operands: cluster/scene/proposal ids
              equal, scores within 1e-3.
-5. main      3 requests of the full PBNet (MinkUNet34C / 14A / 34C, 32
-             channels, seeded random weights) on the bench scene (140k
-             points, ~92k voxels, bench StaticShapes), stage 2 driven by the
-             bench's oracle semantics/offsets.  Launch counters are zeroed
-             just before and read just after: every kernel must have run;
-             clusters > 0, proposals > 0, zero overflow, finite outputs.
-6. trace     2 more requests under torch.profiler: wall and device-busy
-             ms per request, the device's idle share, device time by kernel
-             family and the top kernels by device time.
+5. main      the full PBNet (MinkUNet34C / 14A / 34C, 32 channels, seeded
+             random weights) on the bench scene (140k points, ~92k voxels),
+             stage 2 driven by the bench's oracle semantics/offsets, in two
+             configurations with the same weights: gather (BENCH_SHAPES) and
+             banded (BANDED_SHAPES, the banded conv on).  3 requests each,
+             in turns gather, banded, banded, gather, gather, banded.
+             Launch counters are zeroed just before each request and read
+             just after: every kernel of the path must have run (the banded
+             conv on the banded path only); clusters > 0, proposals > 0,
+             zero overflow (overflow_band and conv_band included), finite
+             outputs; the banded path's cluster and scene ids equal the
+             gather path's and its scores lie within ``SCORE_ATOL``.
+6. eval      the ScanNet AP chain (eval_scene_instances ->
+             assign_instances_for_scan -> evaluate_matches ->
+             compute_averages) on one gather and one banded output against
+             the bench scene's GT ids: every AP finite and in [0, 1].
+7. trace     2 more requests of each configuration under torch.profiler:
+             wall and device-busy ms per request, the device's idle share,
+             device time by kernel family and the top kernels by device
+             time.
 
 TF32 is switched off for matmuls and cuDNN: the port's f32 GEMMs run in full
 f32, so the CPU comparisons hold at the stated tolerances.
 
-The line before the last is the kernels JSON; the last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
-checkout of the repository, the script fails and prints no result.
+The card line comes third from last; the kernels JSON, second from last,
+lists the counterparts of all six TPU kernels.  ``launches`` counts the
+kernel's launches over the main phase's requests of the path it serves
+(B1-B4: gather, B6: banded; ``launches_by_path`` has both); B5 is on no
+path.  B6's ``ms``,
+``plain_ms``, ``bound_ms`` and ``library_ms`` are per banded request: each
+shape's time times its launches in one request, summed (``shapes`` lists
+them).  The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
+device, or outside a checkout of the repository, the script fails and
+prints no result.
 """
 
 import json
@@ -51,14 +79,23 @@ import subprocess
 import sys
 import time
 
+# the clustering kernels (B1-B4), captured from the gather path
 KERNELS = ("neighbor_pack", "masked_window_reduce", "masked_window_border", "window_1nn")
+ALL_KERNELS = KERNELS + ("masked_window_match_pick", "onehot_conv")
 TPU_KERNEL = {
     "neighbor_pack": "pbnet_tpu/ops/pallas_kernels.py:151",
     "masked_window_reduce": "pbnet_tpu/ops/pallas_kernels.py:77",
     "masked_window_border": "pbnet_tpu/ops/pallas_kernels.py:326",
     "window_1nn": "pbnet_tpu/ops/pallas_kernels.py:247",
+    "masked_window_match_pick": "pbnet_tpu/ops/pallas_kernels.py:383",
+    "onehot_conv": "pbnet_tpu/nn/onehot_conv.py:204",
 }
-SOURCE = "pbnet_torch/csrc/window_kernels.cu"
+SOURCE = {k: "pbnet_torch/csrc/window_kernels.cu" for k in ALL_KERNELS}
+SOURCE["onehot_conv"] = "pbnet_torch/csrc/onehot_conv.cu"
+PATHS = ("gather", "banded")
+# the path each kernel serves (its ``launches``); B5 serves none
+SERVES = {k: "gather" for k in KERNELS}
+SERVES.update(masked_window_match_pick=None, onehot_conv="banded")
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W limit).  Its 67
 # TFLOP/s in f32 counts an FMA as two operations; the kernels are built with
 # -fmad=false, so every f32 add, multiply or compare is one instruction, and
@@ -67,16 +104,27 @@ SOURCE = "pbnet_torch/csrc/window_kernels.cu"
 HBM_BYTES_PER_S = 3.35e12
 ISSUE_PER_S = 67e12 / 2
 I32_PER_S = 67e12 / 4
+BF16_FLOPS_PER_S = 989e12  # dense tensor-core rate
 # (f32, int32) operations of one pair test (B1, B4): 3 sub, 3 mul, 2 add and
 # the d2 compare; two integer compares or selects, one predicate and, one
 # bit set or select
 PAIR_OPS = (9, 4)
 # int32 operations per set neighbor bit: find it, clear it, form its column,
 # then min/max (B2) or the (first-orig, label) max (B3)
-SET_BIT_OPS = {"masked_window_reduce": 4, "masked_window_border": 6}
+SET_BIT_OPS = {"masked_window_reduce": 4, "masked_window_border": 6,
+               "masked_window_match_pick": 5}
+# B6 against its plain version: the same bf16-rounded operands multiplied in
+# f32, only the order of the f32 sums differs
+B6_RTOL = 1e-4
+# banded vs gather path on the bench scene: every conv's f32 sums differ in
+# their last bits between the two, which flips the bf16 rounding of some
+# inputs of the next conv (2**-9 relative each); through three UNets that
+# moves the sigmoid scores by up to this much
+SCORE_ATOL = 5e-2
 # kernel-name fragments -> family for the trace phase, first match wins
 FAMILIES = (
     ("clustering kernels", ("neighbor_pack", "masked_window", "window_1nn")),
+    ("banded conv kernel", ("onehot_conv",)),
     ("gemm", ("gemm", "cutlass", "xmma", "cublas", "sm90_")),
     ("sort", ("radix", "sort", "Sort")),
     ("searchsorted", ("searchsorted",)),
@@ -250,6 +298,41 @@ def trace_requests(request, n):
     log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15))
 
 
+def b6_key(sh, plan, weights):
+    """'<topology> <map kind> L<output level> <Cin>-><Cout>' of a banded conv
+    call (the main and local caps are disjoint)."""
+    nt, tm, K = plan.rel.shape
+    m_out = nt * tm
+    _, cin, cout = weights.shape
+    topo = "main" if m_out in sh.voxel_caps else "local"
+    caps = list(sh.voxel_caps if topo == "main" else sh.local_voxel_caps)
+    kind = "k3" if K == 27 else ("down" if m_out < plan.m_in else "up")
+    return f"{topo} {kind} L{caps.index(m_out)} {cin}->{cout}"
+
+
+def b6_bound(feats, plan, weights, valid_out, out):
+    """(bound_ms, bound_by, detail) of one banded conv call: the feature
+    table, weights, plan, mask and output moved once over HBM bandwidth,
+    against 2 * (present in-band entries) * Cin * Cout flops at the bf16
+    tensor-core rate."""
+    _, cin, cout = weights.shape
+    n_bytes = nbytes(feats, weights, plan.starts, plan.rel, valid_out, out)
+    present = int((plan.rel < plan.span).sum())
+    flops = 2 * present * cin * cout
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
+            f"{n_bytes / 1e6:.3f} MB, {present} entries, {flops / 1e9:.3f} GFLOP")
+
+
+def close_err(got, want, rtol):
+    """Max |got - want|; raises unless it is within rtol of max |want|."""
+    err = (got - want).abs().max().item()
+    if not err <= rtol * want.abs().max().item():
+        raise AssertionError(f"differs from its plain version by {err} "
+                             f"(max |plain| {want.abs().max().item()})")
+    return err
+
+
 def oracle_bb_tiny(batch, ok, feat32):
     """Perfect stage-1 output for the tiny scene (true class, offsets onto
     the instance centers), with the model's own per-point features."""
@@ -272,10 +355,14 @@ def main():
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from pbnet_torch import _build, synthetic
+    from pbnet_torch.config import Config
+    from pbnet_torch.eval_pipeline import eval_scene_instances
     from pbnet_torch.models.pbnet import COUNT_MEAN, PBNet, batch_to_device
+    from pbnet_torch.nn import onehot_conv as oc
     from pbnet_torch.nn import sparse_ops
     from pbnet_torch.ops import cluster as cl
     from pbnet_torch.ops import window_kernels as wk
+    from pbnet_torch.tools import eval_protocol as ev
 
     # full f32 for every f32 matmul/convolution (no TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -286,7 +373,7 @@ def main():
 
     # ---- 1. build ----
     t0 = time.time()
-    _build.build_all(["window_kernels"])
+    _build.build_all(["window_kernels", "onehot_conv"])
     for name, (out, secs) in _build.BUILD_LOG.items():
         log(f"[build] {name}.cu: {secs:.1f} s")
         for line in out.splitlines():
@@ -294,26 +381,37 @@ def main():
                 log(f"[build]   {line.strip()}")
     log(f"[build] done in {time.time() - t0:.1f} s")
 
+    def launches():
+        return {**wk.LAUNCHES, **oc.LAUNCHES}
+
+    def reset_launches():
+        wk.reset_launches()
+        oc.reset_launches()
+
     # ---- bench scene (shared by the capture and the main path) ----
-    sh = synthetic.BENCH_SHAPES
+    shapes = {"gather": synthetic.BENCH_SHAPES, "banded": synthetic.BANDED_SHAPES}
     batch, (sem_o, offs_o, soft_o), n_points = synthetic.bench_request("cuda")
     log(f"[scene] {n_points} points, {int(batch['vox_valid'].sum())} voxels")
-    model = PBNet(sh, seed=0, device="cuda")
+    models = {"gather": PBNet(shapes["gather"], seed=0, device="cuda")}
+    models["banded"] = PBNet(shapes["banded"], device="cuda")
+    models["banded"].load_state_dict(models["gather"].state_dict())
 
-    def stage1():
-        return model.backbone(batch)
+    def stage1(path):
+        return models[path].backbone(batch)
 
-    def stages23(bb):
+    def stages23(path, bb):
         bb.update(sem_pred_p=sem_o, offset_pred_p=offs_o, sem_soft_p=soft_o)
-        return model.instance_stage(batch, bb, with_labels=False)
+        return models[path].instance_stage(batch, bb, with_labels=False)
 
-    def request():
-        bb = stage1()
-        return bb, stages23(bb)
+    def request(path):
+        bb = stage1(path)
+        return bb, stages23(path, bb)
 
-    # ---- 2. capture real kernel arguments from one warm-up request ----
+    # ---- 2. capture real kernel arguments from one warm-up request each ----
     captured = {}
+    b6_calls = {}  # shape key -> (args, launches in one banded request)
     originals = {k: getattr(wk, k) for k in KERNELS}
+    oc_original = oc.onehot_conv
 
     def recorder(name):
         fn = originals[name]
@@ -323,16 +421,28 @@ def main():
             return fn(*a, **kw)
         return wrapped
 
+    def b6_recorder(*a):
+        key = b6_key(shapes["banded"], a[1], a[2])
+        args, n = b6_calls.get(key, (a, 0))
+        b6_calls[key] = (args, n + 1)
+        return oc_original(*a)
+
     for k in KERNELS:
         setattr(wk, k, recorder(k))
+    oc.onehot_conv = b6_recorder
     try:
         t0 = time.time()
-        request()
+        request("gather")
+        torch.cuda.synchronize()
+        t1 = time.time()
+        request("banded")
         torch.cuda.synchronize()
     finally:
         for k in KERNELS:
             setattr(wk, k, originals[k])
-    log(f"[kernels] warm-up request {time.time() - t0:.2f} s; captured {sorted(captured)}")
+        oc.onehot_conv = oc_original
+    log(f"[kernels] warm-up requests: gather {t1 - t0:.2f} s, banded {time.time() - t1:.2f} s; "
+        f"captured {sorted(captured)} and {len(b6_calls)} banded-conv shapes")
 
     rows = {}
     for name in KERNELS:
@@ -346,12 +456,12 @@ def main():
         ms = time_kernel(lambda: kern(*args, **kw))
         plain_ms = time_plain(lambda: plain(*args, **kw))
         bms, by, detail = bound(name, args, got)
-        shapes = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
-        log(f"[kernels] {name}: exact at {shapes}; kernel {ms:.4f} ms, plain "
+        shp = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
+        log(f"[kernels] {name}: exact at {shp}; kernel {ms:.4f} ms, plain "
             f"{plain_ms:.3f} ms, bound {bms:.4f} ms ({by}; {detail})")
-        rows[name] = dict(name=name, route="cuda", source=SOURCE, replaces=TPU_KERNEL[name],
-                          max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                          bound_by=by, library_ms=None)
+        rows[name] = dict(name=name, route="cuda", source=SOURCE[name],
+                          replaces=TPU_KERNEL[name], max_abs_err=err, ms=ms,
+                          plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None)
     # oracle content routes almost no rows to the 1-NN pass, so the captured
     # call mostly skips; time the same tiles with every chunk needy as well
     # (trained offsets leave needy rows in many chunks)
@@ -363,7 +473,65 @@ def main():
     bms, by, detail = bound("window_1nn", args, wk.window_1nn(*args))
     log(f"[kernels] window_1nn, every chunk needy: exact; kernel {ms:.4f} ms, plain "
         f"{plain_ms:.3f} ms, bound {bms:.4f} ms ({by}; {detail})")
+
+    # B5 on the border kernel's arguments, with its ``best`` as the target:
+    # there match_pick must give the border kernel's ``root``
+    name = "masked_window_match_pick"
+    bargs, _ = captured["masked_window_border"]
+    best, root = wk.masked_window_border(*bargs)
+    args = tuple(bargs) + (best,)
+    got = wk.masked_window_match_pick(*args)
+    err = max_abs_err((got,), (wk.masked_window_match_pick_plain(*args),))
+    if not torch.equal(got, root):
+        raise AssertionError("match_pick(best) differs from the border kernel's root")
+    ms = time_kernel(lambda: wk.masked_window_match_pick(*args))
+    plain_ms = time_plain(lambda: wk.masked_window_match_pick_plain(*args))
+    bms, by, detail = bound(name, args, (got,))
+    log(f"[kernels] {name}: exact and equal to border's root; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bms:.4f} ms ({by}; {detail})")
+    rows[name] = dict(name=name, route="cuda", source=SOURCE[name], replaces=TPU_KERNEL[name],
+                      max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                      library_ms=None)
     del captured
+
+    # B6 at every shape the banded path launches; library: the port's gather
+    # conv on the same map (the plan drops nothing here, so it computes the
+    # same function) and weights
+    name = "onehot_conv"
+    shape_rows = []
+    for key in sorted(b6_calls):
+        (feats, plan, w, valid, dt), n = b6_calls[key]
+        if int(plan.overflow):
+            raise AssertionError(f"{key}: the plan drops {int(plan.overflow)} entries")
+        kmap = oc.plan_map(plan)
+        got = oc.onehot_conv(feats, plan, w, valid, dt)
+        err = close_err(got, oc.onehot_conv_plain(feats, plan, w, valid, dt), B6_RTOL)
+        close_err(got, sparse_ops.gather_conv(feats, kmap, w, valid), B6_RTOL)
+        ms = time_kernel(lambda: oc.onehot_conv(feats, plan, w, valid, dt))
+        plain_ms = time_plain(lambda: oc.onehot_conv_plain(feats, plan, w, valid, dt))
+        lib_ms = time_kernel(lambda: sparse_ops.gather_conv(feats, kmap, w, valid))
+        bms, by, detail = b6_bound(feats, plan, w, valid, got)
+        log(f"[kernels] {name} {key} x{n}/request: max err {err:.3e}; kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.3f} ms, gather conv {lib_ms:.4f} ms, bound {bms:.4f} ms "
+            f"({by}; {detail})")
+        shape_rows.append(dict(shape=key, per_request=n, max_abs_err=err, ms=ms,
+                               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                               bound_by=by))
+    del b6_calls
+
+    def total(k):
+        return sum(r["per_request"] * r[k] for r in shape_rows)
+
+    by_ops = sum(r["per_request"] * r["bound_ms"] for r in shape_rows
+                 if r["bound_by"] == "operations")
+    rows[name] = dict(name=name, route="cuda", source=SOURCE[name], replaces=TPU_KERNEL[name],
+                      max_abs_err=max(r["max_abs_err"] for r in shape_rows),
+                      ms=total("ms"), plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
+                      bound_by="operations" if 2 * by_ops > total("bound_ms") else "bytes",
+                      library_ms=total("library_ms"), shapes=shape_rows)
+    log(f"[kernels] {name}, per banded request: kernel {rows[name]['ms']:.4f} ms, plain "
+        f"{rows[name]['plain_ms']:.3f} ms, gather conv {rows[name]['library_ms']:.4f} ms, "
+        f"bound {rows[name]['bound_ms']:.4f} ms ({rows[name]['bound_by']})")
 
     # ---- 3. clustering: card vs CPU on a reduced bench scene ----
     # oracle offsets, and offsets with 4 cm of noise (more propagation
@@ -418,74 +586,137 @@ def main():
             outs.append((bb, o))
     finally:
         sparse_ops.COMPUTE_DTYPE = old_dtype
-    (bg, og), (bc, oc) = outs
+    (bg, og), (bc, oc_) = outs
     if not torch.allclose(bg["point_feat_p"].cpu(), bc["point_feat_p"], rtol=1e-3, atol=1e-3):
         raise AssertionError("stage-1 features differ between card and CPU")
     for k in ("scene_pid", "prop_point_src", "num_proposals"):
-        if not torch.equal(og[k].cpu(), oc[k]):
+        if not torch.equal(og[k].cpu(), oc_[k]):
             raise AssertionError(f"{k} differs between card and CPU")
-    if not torch.equal(og["cluster"].cluster_id.cpu(), oc["cluster"].cluster_id):
+    if not torch.equal(og["cluster"].cluster_id.cpu(), oc_["cluster"].cluster_id):
         raise AssertionError("cluster ids differ between card and CPU")
-    ms_g, ms_c = og["mask_scores"].cpu(), oc["mask_scores"]
+    ms_g, ms_c = og["mask_scores"].cpu(), oc_["mask_scores"]
     if not torch.allclose(ms_g, ms_c, rtol=1e-3, atol=1e-3):
         raise AssertionError("mask scores differ between card and CPU")
-    if int(oc["num_proposals"]) < 1:
+    if int(oc_["num_proposals"]) < 1:
         raise AssertionError("reference phase made no proposals")
-    log(f"[reference] tiny scene full forward: card == CPU ({int(oc['num_proposals'])} "
+    log(f"[reference] tiny scene full forward: card == CPU ({int(oc_['num_proposals'])} "
         f"proposals, max mask-score diff {(ms_g - ms_c).abs().max().item():.2e})")
 
-    # ---- 5. main path: 3 requests at full width ----
-    wk.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    times, stage_ms = [], []
-    for _ in range(N_REQUESTS):
+    # ---- 5. main paths: 3 requests each, in turns ----
+    times = {p: [] for p in PATHS}
+    stage_ms = {p: [] for p in PATHS}
+    path_launches = {p: {k: 0 for k in ALL_KERNELS} for p in PATHS}
+    peak_gb = {p: 0.0 for p in PATHS}
+    last = {}
+    for path in ("gather", "banded", "banded", "gather", "gather", "banded"):
+        torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
+        reset_launches()
         t0 = time.perf_counter()
-        bb = stage1()
+        bb = stage1(path)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        out = stages23(bb)
+        out = stages23(path, bb)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        times.append((t2 - t0) * 1e3)
-        stage_ms.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3))
-    launches = dict(wk.LAUNCHES)
-    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        counts = launches()
+        times[path].append((t2 - t0) * 1e3)
+        stage_ms[path].append(((t1 - t0) * 1e3, (t2 - t1) * 1e3))
+        peak_gb[path] = max(peak_gb[path], torch.cuda.max_memory_allocated() / 2**30)
+        for k in ALL_KERNELS:
+            on_path = k in KERNELS or (k == "onehot_conv" and path == "banded")
+            if on_path and counts[k] <= 0:
+                raise AssertionError(f"kernel {k} was not launched on the {path} path")
+            if not on_path and counts[k]:
+                raise AssertionError(f"kernel {k} was launched on the {path} path")
+            path_launches[path][k] += counts[k]
+        last[path] = (bb, out)
 
-    ncl = int(out["cluster"].num_clusters)
-    nprop = int(out["num_final_proposals"])
-    overflow = {k: int(v) for k, v in out["overflow"].items()}
-    overflow.update(vox=int(bb["overflow_vox"]), grid=int(bb["overflow_grid"]))
-    usage = {k: int(v) for k, v in out["usage"].items()}
-    log(f"[main] clusters {ncl}, proposals {nprop}, rounds "
-        f"{int(out['cluster'].prop_rounds)}, overflow {overflow}, usage {usage}")
-    if ncl <= 0 or nprop <= 0:
-        raise AssertionError("main path produced no clusters/proposals")
-    if any(overflow.values()):
-        raise AssertionError(f"capacity overflow on the bench scene: {overflow}")
-    for k in ("sem_pred_score_p", "offset_pred_p", "point_feat_p"):
-        if not torch.isfinite(bb[k]).all():
-            raise AssertionError(f"non-finite {k}")
+    for path in PATHS:
+        bb, out = last[path]
+        ncl = int(out["cluster"].num_clusters)
+        nprop = int(out["num_final_proposals"])
+        overflow = {k: int(v) for k, v in out["overflow"].items()}
+        overflow.update(vox=int(bb["overflow_vox"]), grid=int(bb["overflow_grid"]),
+                        band=int(bb["overflow_band"]))
+        usage = {k: int(v) for k, v in out["usage"].items()}
+        log(f"[main] {path}: clusters {ncl}, proposals {nprop}, rounds "
+            f"{int(out['cluster'].prop_rounds)}, overflow {overflow}, usage {usage}")
+        if ncl <= 0 or nprop <= 0:
+            raise AssertionError(f"{path} path produced no clusters/proposals")
+        if any(overflow.values()):
+            raise AssertionError(f"capacity overflow on the bench scene ({path}): {overflow}")
+        for k in ("sem_pred_score_p", "offset_pred_p", "point_feat_p"):
+            if not torch.isfinite(bb[k]).all():
+                raise AssertionError(f"non-finite {k} ({path})")
+        for k in ("mask_scores", "clt_scores"):
+            if not torch.isfinite(out[k]).all():
+                raise AssertionError(f"non-finite {k} ({path})")
+        if tuple(out["clt_scores"].shape) != (shapes[path].cluster_cap,):
+            raise AssertionError("clt_scores has the wrong shape")
+        per_req = {k: v // N_REQUESTS for k, v in path_launches[path].items() if v}
+        log(f"[main] {path}: {N_REQUESTS} requests: ms/scene "
+            f"{[round(t, 3) for t in times[path]]} (stage 1, stages 2-3: "
+            f"{[(round(a, 3), round(b, 3)) for a, b in stage_ms[path]]}); median "
+            f"{statistics.median(times[path]):.3f} ms; peak memory {peak_gb[path]:.2f} GiB; "
+            f"launches per request {per_req}; card {card}")
+
+    (_, og), (_, ob) = last["gather"], last["banded"]
+    for k in ("scene_pid", "scene_src"):
+        if not torch.equal(og[k], ob[k]):
+            raise AssertionError(f"{k} differs between the banded and the gather path")
+    if not torch.equal(og["cluster"].cluster_id, ob["cluster"].cluster_id):
+        raise AssertionError("cluster ids differ between the banded and the gather path")
+    diffs = {}
     for k in ("mask_scores", "clt_scores"):
-        if not torch.isfinite(out[k]).all():
-            raise AssertionError(f"non-finite {k}")
-    if tuple(out["clt_scores"].shape) != (sh.cluster_cap,):
-        raise AssertionError("clt_scores has the wrong shape")
-    for k in KERNELS:
-        if launches[k] <= 0:
-            raise AssertionError(f"kernel {k} was not launched on the main path")
-        rows[k]["launches"] = launches[k]
-    log(f"[main] {N_REQUESTS} requests: ms/scene {[round(t, 3) for t in times]} "
-        f"(stage 1, stages 2-3: {[(round(a, 3), round(b, 3)) for a, b in stage_ms]}); "
-        f"median {statistics.median(times):.3f} ms; peak memory {peak_gb:.2f} GiB; "
-        f"launches {launches}; card {card}")
+        diffs[k] = (ob[k] - og[k]).abs().max().item()
+        if not diffs[k] <= SCORE_ATOL:
+            raise AssertionError(f"{k} of the banded path differ by {diffs[k]} > {SCORE_ATOL}")
+    kept_diff = int((og["prop_point_kept"] != ob["prop_point_kept"]).sum())
+    log(f"[main] banded vs gather: cluster and scene ids equal; max |diff| "
+        f"{ {k: f'{v:.3e}' for k, v in diffs.items()} } (gate {SCORE_ATOL}); "
+        f"kept flags differ at {kept_diff} of {int(og['scene_valid'].sum())} scene points; "
+        f"median ms/scene gather {statistics.median(times['gather']):.3f}, banded "
+        f"{statistics.median(times['banded']):.3f}")
+    for k in ALL_KERNELS:
+        serves = SERVES[k]
+        rows[k]["launches"] = path_launches[serves][k] if serves else 0
+        rows[k]["path"] = serves or "off every path"
+        rows[k]["launches_by_path"] = {p: path_launches[p][k] for p in PATHS}
 
-    # ---- 6. trace: where a request's time goes ----
-    trace_requests(request, TRACE_REQUESTS)
+    # ---- 6. eval: the ScanNet AP chain on both paths' outputs ----
+    gt_ids, superpoint = synthetic.bench_eval_inputs(0)
+    cfg = Config()
+    for path in PATHS:
+        # the scene runs as one copy of n points: eval_pipeline folds point
+        # indices mod num_points // 3 (the reference's three TTA copies), so
+        # num_points = 3 * n leaves them as they are
+        pred = eval_scene_instances(last[path][1], 3 * n_points, superpoint, cfg)
+        if pred is None:
+            raise AssertionError(f"no proposal of the {path} path survived the eval filters")
+        g2p, p2g = ev.assign_instances_for_scan("bench", pred, gt_ids)
+        aps = ev.evaluate_matches({"bench": {"gt": g2p, "pred": p2g}})
+        avgs = ev.compute_averages(aps)
+        # the classes evaluate_matches gives an AP (the others are NaN)
+        has_gt = [any(g["instance_id"] >= 1000 and g["vert_count"] >= ev.MIN_REGION_SIZES[0]
+                      for g in g2p[lab]) for lab in ev.CLASS_LABELS]
+        vals = [avgs["all_ap"], avgs["all_ap_50%"], avgs["all_ap_25%"]]
+        vals += [float(x) for x in aps[0][np.array(has_gt)].ravel()]
+        if not all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in vals):
+            raise AssertionError(f"{path}: an AP is not finite in [0, 1]: {vals}")
+        log(f"[eval] {path}: {len(pred['conf'])} proposals kept of "
+            f"{int(last[path][1]['num_final_proposals'])}; mAP {avgs['all_ap']:.4f}, "
+            f"AP50 {avgs['all_ap_50%']:.4f}, AP25 {avgs['all_ap_25%']:.4f} "
+            f"({sum(has_gt)} classes with GT)")
+
+    # ---- 7. trace: where a request's time goes ----
+    for path in PATHS:
+        log(f"[trace] {path} path:")
+        trace_requests(lambda: request(path), TRACE_REQUESTS)
     log(f"[done] {time.time() - t_start:.1f} s")
 
     print(card, flush=True)
-    print(json.dumps({"kernels": [rows[k] for k in KERNELS]}), flush=True)
+    print(json.dumps({"kernels": [rows[k] for k in ALL_KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -10,6 +10,10 @@ The library lands in ``pbnet_torch/_build/`` (git-ignored) under a name that
 carries the hash of the source and the flags, so an edited source rebuilds
 at its next use.  Builds happen on first use, never at import.  A failing
 nvcc raises.
+
+Every kernel wrapper checks its tensors with :func:`check`, passes them as
+:func:`ptr`, and launches through :func:`launch`, which raises on a refused
+launch and counts the launch.
 """
 
 from __future__ import annotations
@@ -84,3 +88,32 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_target(name)[1]))
         _LIBS[name] = lib
     return lib
+
+
+def check(name, t, dtype, shape, device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``, as a kernel's C launcher takes it."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def launch(launches: dict, name: str, fn, *args) -> None:
+    """Call the C launcher ``fn(*args, stream)`` on PyTorch's current stream.
+    Raise if it returns a CUDA error (a refused launch never runs), else
+    count the launch in ``launches[name]``."""
+    import torch
+
+    err = fn(*args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+    launches[name] += 1

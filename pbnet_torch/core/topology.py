@@ -20,7 +20,7 @@ JAX package's entry for entry and its grid overflow is 0 by construction.
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Sequence
 
 import numpy as np
@@ -171,6 +171,14 @@ class UNetTopology:
     up_maps: tuple  # l+1 -> l: (M_l, 8) k=2 s=2 transposed-conv map
     level_overflow: torch.Tensor  # () int32 voxels beyond level caps
     grid_overflow: torch.Tensor  # () int32, always 0 (no grids here)
+    # banded conv plans (nn/onehot_conv.attach_plans): OnehotPlan or None,
+    # aligned with k3_maps/down_maps/up_maps; the k=5 stem never bands
+    k3_plans: tuple = ()
+    down_plans: tuple = ()
+    up_plans: tuple = ()
+    # () int32 map entries outside their band (0 without plans)
+    plan_overflow: torch.Tensor = field(
+        default_factory=lambda: torch.zeros((), dtype=torch.int32))
 
     def replace(self, **kw) -> "UNetTopology":
         return dataclasses.replace(self, **kw)
@@ -210,4 +218,5 @@ def build_unet_topology(level0: SparseLevel, caps: Sequence[int]) -> UNetTopolog
         levels=tuple(levels), stem_map=stem, k3_maps=k3, down_maps=down,
         up_maps=up, level_overflow=level_overflow,
         grid_overflow=torch.zeros((), dtype=torch.int32, device=stem.device),
+        plan_overflow=torch.zeros((), dtype=torch.int32, device=stem.device),
     )

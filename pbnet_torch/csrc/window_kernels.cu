@@ -7,6 +7,8 @@
 //   neighbor_pack        replaces pbnet_tpu/ops/pallas_kernels.py::neighbor_pack
 //   masked_window_reduce replaces pallas_kernels.py::masked_window_reduce
 //   masked_window_border replaces pallas_kernels.py::masked_window_border
+//     and, given per-row targets in place of its first pass,
+//     pallas_kernels.py::masked_window_match_pick
 //   window_1nn           replaces pallas_kernels.py::window_1nn
 //
 // Layouts (row-major, int32 unless noted):
@@ -201,12 +203,18 @@ masked_window_reduce_kernel(const uint32_t* __restrict__ bits1,
 // Design: as B2, one warp per row.  Pass 1 takes the max first-orig value
 // over set bits and shuffles it to every lane; pass 2 takes the max label
 // over set bits whose first-orig equals it.  -1 where no bits are set.
+//
+// B5 masked_window_match_pick is the same kernel with `target` given: the
+// row's target replaces pass 1's maximum, pass 2 runs as it is, and only
+// the label is written (best_out is null).  Its bound is B2's with the
+// words read once.
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(THREADS)
 masked_window_border_kernel(const uint32_t* __restrict__ bits1,
                             const uint32_t* __restrict__ bits2,
                             const int* __restrict__ fw1, const int* __restrict__ fw2,
                             const int* __restrict__ lw1, const int* __restrict__ lw2,
+                            const int* __restrict__ target,
                             int* __restrict__ best_out, int* __restrict__ root_out,
                             int chunk, int W) {
   extern __shared__ int sval[];  // [fw1 | fw2 | lw1 | lw2], each W
@@ -225,19 +233,23 @@ masked_window_border_kernel(const uint32_t* __restrict__ bits1,
     const int r = blockIdx.x * ROWS_PER_BLOCK + warp * RPW + k;
     if (r >= chunk) break;
     int mx = -1;
-    for (int win = 0; win < 2; ++win) {
-      const uint32_t* bits = (win == 0 ? bits1 : bits2) + ((size_t)c * chunk + r) * nw;
-      const int* f = sval + win * W;
-      for (int w = lane; w < nw; w += 32) {
-        uint32_t word = bits[w];
-        while (word) {
-          const int b = __ffs(word) - 1;
-          word &= word - 1u;
-          mx = max(mx, f[(w << 5) + b]);
+    if (target != nullptr) {  // uniform: B5 mode
+      mx = target[(size_t)c * chunk + r];
+    } else {
+      for (int win = 0; win < 2; ++win) {
+        const uint32_t* bits = (win == 0 ? bits1 : bits2) + ((size_t)c * chunk + r) * nw;
+        const int* f = sval + win * W;
+        for (int w = lane; w < nw; w += 32) {
+          uint32_t word = bits[w];
+          while (word) {
+            const int b = __ffs(word) - 1;
+            word &= word - 1u;
+            mx = max(mx, f[(w << 5) + b]);
+          }
         }
       }
+      for (int o = 16; o > 0; o >>= 1) mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, o));
     }
-    for (int o = 16; o > 0; o >>= 1) mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, o));
     int acc = -1;
     for (int win = 0; win < 2; ++win) {
       const uint32_t* bits = (win == 0 ? bits1 : bits2) + ((size_t)c * chunk + r) * nw;
@@ -255,7 +267,7 @@ masked_window_border_kernel(const uint32_t* __restrict__ bits1,
     }
     for (int o = 16; o > 0; o >>= 1) acc = max(acc, __shfl_xor_sync(0xffffffffu, acc, o));
     if (lane == 0) {
-      best_out[(size_t)c * chunk + r] = mx;
+      if (best_out != nullptr) best_out[(size_t)c * chunk + r] = mx;
       root_out[(size_t)c * chunk + r] = acc;
     }
   }
@@ -405,8 +417,22 @@ int pbnet_masked_window_border(const int* bits1, const int* bits2, const int* fw
   if (e != cudaSuccess) return (int)e;
   masked_window_border_kernel<<<grid_for(nchunks, chunk), THREADS, smem,
                                 (cudaStream_t)stream>>>(
-      (const uint32_t*)bits1, (const uint32_t*)bits2, fw1, fw2, lw1, lw2, best, root,
-      chunk, W);
+      (const uint32_t*)bits1, (const uint32_t*)bits2, fw1, fw2, lw1, lw2, nullptr, best,
+      root, chunk, W);
+  return (int)cudaGetLastError();
+}
+
+int pbnet_masked_window_match_pick(const int* bits1, const int* bits2, const int* fw1,
+                                   const int* fw2, const int* lw1, const int* lw2,
+                                   const int* target, int* out, int nchunks, int chunk,
+                                   int W, void* stream) {
+  const size_t smem = (size_t)4 * W * sizeof(int);
+  cudaError_t e = allow_smem(masked_window_border_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  masked_window_border_kernel<<<grid_for(nchunks, chunk), THREADS, smem,
+                                (cudaStream_t)stream>>>(
+      (const uint32_t*)bits1, (const uint32_t*)bits2, fw1, fw2, lw1, lw2, target, nullptr,
+      out, chunk, W);
   return (int)cudaGetLastError();
 }
 

@@ -24,7 +24,7 @@ from ..config import StaticShapes
 from ..core import coords as ck
 from ..core import quantize as qz
 from ..core import topology as tp
-from ..nn import minkunet, sparse_ops
+from ..nn import minkunet, onehot_conv, sparse_ops
 from ..nn.modules import MLPHead
 from ..ops import cluster as cluster_ops
 
@@ -102,6 +102,8 @@ class PBNet(nn.Module):
         sh = self.shapes
         level0, feats = make_level0(batch["vox_coords"], batch["vox_feats"], batch["vox_valid"])
         topo = tp.build_unet_topology(level0, list(sh.voxel_caps))
+        if sh.onehot_spans:
+            topo = onehot_conv.attach_plans(topo, sh.onehot_tm, sh.onehot_spans)
         point_feat_v = self.MEUnet(topo, feats)  # (V, 32)
         v0 = topo.levels[0].valid
         sem_score_v = self.linear_sem(point_feat_v, v0)
@@ -122,7 +124,7 @@ class PBNet(nn.Module):
                 batch["vox_valid"].sum(dtype=torch.int32) - level0.cap, min=0)
             + topo.level_overflow,
             "overflow_grid": topo.grid_overflow,
-            "overflow_band": _i32(0, v0.device),
+            "overflow_band": topo.plan_overflow,
             "point_feat_p": g[:, :f],
             "sem_pred_score_p": sem_score_p,
             "sem_soft_p": torch.softmax(sem_score_p, -1),
@@ -276,6 +278,8 @@ class PBNet(nn.Module):
         # the JAX package derives these maps from the backbone's; the lookup
         # build gives the same maps (pbnet_torch/core/topology.py)
         topo2 = tp.build_unet_topology(lv2, list(sh.local_voxel_caps))
+        if sh.onehot_spans_local:
+            topo2 = onehot_conv.attach_plans(topo2, sh.onehot_tm, sh.onehot_spans_local)
         d_feat = self.D_Unet(topo2, feats2)
         mask_v = self.linear_binary(d_feat, topo2.levels[0].valid)[:, 0]
         p2v2 = q2["point2voxel"]
@@ -305,8 +309,9 @@ class PBNet(nn.Module):
         # On the local-scene lattice (the JAX package's grid branch, scale 1)
         # the ScoreNet topology is DERIVED from topo2: voxels without a kept
         # point drop out level by level through the down maps, every map is
-        # reused (a map entry at a dropped voxel reads zeros, as -1 would).
-        # Otherwise the kept points are re-quantized.
+        # reused (a map entry at a dropped voxel reads zeros, as -1 would),
+        # and so is every banding plan.  Otherwise the kept points are
+        # re-quantized into a fresh topology without plans.
         derive3 = (sh.grid_extent is not None and self.voxel_size == LOCAL_VOXEL
                    and self.scale_size == 1.0)
         if derive3:
@@ -354,7 +359,8 @@ class PBNet(nn.Module):
             "scene_points": torch.clamp(total - T, min=0),
             "local_vox": torch.clamp(q2["count"] - V2, min=0) + topo2.level_overflow,
             "local_grid": topo2.grid_overflow,
-            "conv_band": _i32(0, dev),
+            # topo3 derives from topo2 (same maps and plans): counted once
+            "conv_band": topo2.plan_overflow,
             "score_vox": score_overflow,
             "score_grid": topo3.grid_overflow,
         }

@@ -9,6 +9,17 @@ Kernel maps come from a precomputed :class:`~pbnet_torch.core.topology
 .UNetTopology`; all residual blocks at one stride share one k=3 map.  Module
 names follow the JAX package's flax names (``conv0``, ``bn0``, ``conv{s}s2``,
 ``bn{s}``, ``block{n}_{i}``, ``convtr{k}``, ``bntr{k}``, ``final``).
+
+Banding plans (``topo.k3_plans``/``down_plans``/``up_plans``, attached by
+``onehot_conv.attach_plans``) go to the same convs as in the JAX package:
+an encoder stage's strided conv takes ``down_plans[s]`` and its blocks
+``k3_plans[s + 1]``; a decoder stage's transposed conv takes
+``up_plans[lvl]`` and its blocks ``k3_plans[lvl]``; the stem never bands.
+The JAX package runs a dense-grid conv at levels of at most 30,000 grid
+cells, and there its dense path wins over a band plan; the port has no
+dense convs (they compute the same values), so a span set at such a level
+makes the port run the banded kernel where the JAX package runs a dense
+conv.
 """
 
 from __future__ import annotations
@@ -22,6 +33,11 @@ from ..core.topology import UNetTopology
 from .modules import BLOCK_EXPANSION, BLOCKS, MaskedBatchNorm, SparseConv, SparseLinear
 
 STEM_VOLUME = 125  # k=5 stem
+
+
+def _plan(plans, i):
+    """Plan ``i`` of a topology's plan tuple, or None."""
+    return plans[i] if i < len(plans) else None
 
 
 class MinkUNetBase(nn.Module):
@@ -60,9 +76,9 @@ class MinkUNetBase(nn.Module):
             ch = planes[4 + d] * exp
         self.final = SparseLinear(ch, out_channels, use_bias=True, **kw)
 
-    def _blocks(self, name, n, x, kmap, valid):
+    def _blocks(self, name, n, x, kmap, valid, plan):
         for i in range(n):
-            x = getattr(self, f"{name}_{i}")(x, kmap, valid)
+            x = getattr(self, f"{name}_{i}")(x, kmap, valid, plan)
         return x
 
     def forward(self, topo: UNetTopology, feats: torch.Tensor) -> torch.Tensor:
@@ -72,21 +88,23 @@ class MinkUNetBase(nn.Module):
         enc = []
         x = out_p1
         for s in range(4):
-            x = getattr(self, f"conv{s+1}s2")(x, topo.down_maps[s], v[s + 1])
+            x = getattr(self, f"conv{s+1}s2")(x, topo.down_maps[s], v[s + 1],
+                                              _plan(topo.down_plans, s))
             x = torch.relu(getattr(self, f"bn{s+1}")(x, v[s + 1]))
             x = self._blocks(f"block{s+1}", self.layers[s], x,
-                             topo.k3_maps[s + 1], v[s + 1])
+                             topo.k3_maps[s + 1], v[s + 1], _plan(topo.k3_plans, s + 1))
             enc.append(x)
 
         # decoder: levels 3, 2, 1, 0 with skips enc[2], enc[1], enc[0], out_p1
         skips = [enc[2], enc[1], enc[0], out_p1]
         for d in range(4):
             lvl = 3 - d
-            x = getattr(self, f"convtr{4+d}")(x, topo.up_maps[lvl], v[lvl])
+            x = getattr(self, f"convtr{4+d}")(x, topo.up_maps[lvl], v[lvl],
+                                              _plan(topo.up_plans, lvl))
             x = torch.relu(getattr(self, f"bntr{4+d}")(x, v[lvl]))
             x = torch.cat([x, skips[d]], 1)
             x = self._blocks(f"block{5+d}", self.layers[4 + d], x,
-                             topo.k3_maps[lvl], v[lvl])
+                             topo.k3_maps[lvl], v[lvl], _plan(topo.k3_plans, lvl))
         return self.final(x, v[0])
 
 
@@ -120,13 +138,15 @@ class MinkMiniUNet(nn.Module):
     def forward(self, topo: UNetTopology, feats: torch.Tensor) -> torch.Tensor:
         v = [lv.valid for lv in topo.levels]
         out_p0 = torch.relu(self.bn0(self.conv0(feats, topo.stem_map, v[0]), v[0]))
-        x = torch.relu(self.bn1(self.conv1s2(out_p0, topo.down_maps[0], v[1]), v[1]))
+        x = self.conv1s2(out_p0, topo.down_maps[0], v[1], _plan(topo.down_plans, 0))
+        x = torch.relu(self.bn1(x, v[1]))
         for i in range(self.layers[0]):
-            x = getattr(self, f"block1_{i}")(x, topo.k3_maps[1], v[1])
-        x = torch.relu(self.bntr1(self.convtr2(x, topo.up_maps[0], v[0]), v[0]))
+            x = getattr(self, f"block1_{i}")(x, topo.k3_maps[1], v[1], _plan(topo.k3_plans, 1))
+        x = self.convtr2(x, topo.up_maps[0], v[0], _plan(topo.up_plans, 0))
+        x = torch.relu(self.bntr1(x, v[0]))
         x = torch.cat([x, out_p0], 1)
         for i in range(self.layers[1]):
-            x = getattr(self, f"block2_{i}")(x, topo.k3_maps[0], v[0])
+            x = getattr(self, f"block2_{i}")(x, topo.k3_maps[0], v[0], _plan(topo.k3_plans, 0))
         return self.final(x, v[0])
 
 

@@ -40,8 +40,8 @@ class SparseConv(nn.Module):
             requires_grad=False,
         )
 
-    def forward(self, feats, kmap, valid_out):
-        return sparse_ops.gather_conv(feats, kmap, self.kernel, valid_out)
+    def forward(self, feats, kmap, valid_out, plan=None):
+        return sparse_ops.gather_conv(feats, kmap, self.kernel, valid_out, plan=plan)
 
 
 class SparseLinear(nn.Module):
@@ -116,9 +116,9 @@ class BasicBlock(nn.Module):
         else:
             self.downsample_conv = None
 
-    def forward(self, feats, kmap3, valid):
-        y = torch.relu(self.norm1(self.conv1(feats, kmap3, valid), valid))
-        y = self.norm2(self.conv2(y, kmap3, valid), valid)
+    def forward(self, feats, kmap3, valid, plan=None):
+        y = torch.relu(self.norm1(self.conv1(feats, kmap3, valid, plan), valid))
+        y = self.norm2(self.conv2(y, kmap3, valid, plan), valid)
         if self.downsample_conv is not None:
             skip = self.downsample_norm(self.downsample_conv(feats, valid), valid)
         else:

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from . import onehot_conv
+
 # Conv operand dtype: operands are rounded to this type and the product is
 # accumulated in f32 (bf16 by default, as in the JAX package).  Set to
 # torch.float32 for strict-parity comparisons.
@@ -29,7 +31,8 @@ def take_rows0(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def gather_conv(feats: torch.Tensor, kmap: torch.Tensor, weights: torch.Tensor,
-                valid_out: torch.Tensor, bias: torch.Tensor | None = None) -> torch.Tensor:
+                valid_out: torch.Tensor, bias: torch.Tensor | None = None,
+                plan: onehot_conv.OnehotPlan | None = None) -> torch.Tensor:
     """Sparse convolution as gather + GEMM.  Returns (M_out, Cout) f32.
 
     feats (M_in, Cin); kmap (M_out, K) int32 with -1 = missing input;
@@ -37,7 +40,17 @@ def gather_conv(feats: torch.Tensor, kmap: torch.Tensor, weights: torch.Tensor,
     to ``COMPUTE_DTYPE`` and multiplied in f32, which is exactly "bf16
     operands, f32 accumulation" (a product of two bf16 values is exact in
     f32).
+
+    With a banding ``plan`` of this map and at least ``onehot_conv.MIN_CIN``
+    input channels, the banded conv runs instead; it drops the entries the
+    plan counts in its ``overflow``.
     """
+    if plan is not None and feats.shape[1] >= onehot_conv.MIN_CIN:
+        y = onehot_conv.onehot_conv(feats.contiguous(), plan, weights, valid_out,
+                                    COMPUTE_DTYPE)
+        if bias is not None:
+            y = torch.where(valid_out[:, None], y + bias, 0.0)
+        return y
     k, cin, cout = weights.shape
     g = take_rows0(feats.to(COMPUTE_DTYPE), kmap).reshape(kmap.shape[0], k * cin)
     w = weights.to(COMPUTE_DTYPE).reshape(k * cin, cout)

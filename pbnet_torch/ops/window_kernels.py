@@ -1,4 +1,4 @@
-"""The four banded-window clustering passes: CUDA kernels and plain versions.
+"""The banded-window clustering passes: CUDA kernels and plain versions.
 
 Each pass has
 
@@ -15,6 +15,10 @@ Each pass has
 | masked_window_reduce | pallas_kernels.py:77 masked_window_reduce         |
 | masked_window_border | pallas_kernels.py:326 masked_window_border        |
 | window_1nn           | pallas_kernels.py:247 window_1nn                  |
+| masked_window_match_pick | pallas_kernels.py:383 masked_window_match_pick |
+
+``masked_window_match_pick`` runs on no path (the fused border pass took its
+place in clustering); its kernel is a mode of the border kernel.
 
 Layouts: rows ``(nchunks, 3, chunk)``; window planes ``(nchunks, P, W)``;
 window values ``(nchunks, W)``; neighbor bit words ``(nchunks, chunk, W/32)``
@@ -32,6 +36,8 @@ import ctypes
 
 import torch
 
+from .. import _build
+
 INF_I32 = 2**31 - 1
 
 LAUNCHES = {
@@ -39,6 +45,7 @@ LAUNCHES = {
     "masked_window_reduce": 0,
     "masked_window_border": 0,
     "window_1nn": 0,
+    "masked_window_match_pick": 0,
 }
 
 _SOURCE = "window_kernels"
@@ -54,42 +61,26 @@ def _library():
     """The kernel library, built and bound on first use."""
     global _lib
     if _lib is None:
-        from .. import _build
-
         lib = _build.load(_SOURCE)
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.pbnet_neighbor_pack.argtypes = [P, P, P, P, P, P, F, P, P, P, I, I, I, P]
         lib.pbnet_masked_window_reduce.argtypes = [P, P, P, P, P, I, I, I, I, P]
         lib.pbnet_masked_window_border.argtypes = [P, P, P, P, P, P, P, P, I, I, I, P]
         lib.pbnet_window_1nn.argtypes = [P, P, P, P, P, P, P, I, I, I, P]
+        lib.pbnet_masked_window_match_pick.argtypes = [P, P, P, P, P, P, P, P, I, I, I, P]
         for fn in (lib.pbnet_neighbor_pack, lib.pbnet_masked_window_reduce,
-                   lib.pbnet_masked_window_border, lib.pbnet_window_1nn):
+                   lib.pbnet_masked_window_border, lib.pbnet_window_1nn,
+                   lib.pbnet_masked_window_match_pick):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def _check(name, t, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
+_check, _ptr = _build.check, _build.ptr
 
 
 def _launch(name, fn, *args):
-    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    err = fn(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-    LAUNCHES[name] += 1
-
-
-def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
+    _build.launch(LAUNCHES, name, fn, *args)
 
 
 def _window_dims(bits):
@@ -262,6 +253,45 @@ def masked_window_border(bits1, bits2, fw1, fw2, lw1, lw2):
             _ptr(bits1), _ptr(bits2), _ptr(fw1), _ptr(fw2), _ptr(lw1), _ptr(lw2),
             _ptr(best), _ptr(root), nchunks, chunk, W)
     return best, root
+
+
+# ---------------------------------------------------------------------------
+# B5 masked_window_match_pick
+# ---------------------------------------------------------------------------
+def masked_window_match_pick_plain(bits1, bits2, fw1, fw2, lw1, lw2, target):
+    """out[i, r] = max label ``lw*[i, j]`` over set bits ``j`` of both
+    windows whose first-orig ``fw*[i, j]`` equals ``target[i, r]``; -1 where
+    none does."""
+    roots = []
+    for c in range(bits1.shape[0]):
+        tgt = target[c][:, None]
+        root = None
+        for bits, fw, lw in ((bits1, fw1, lw1), (bits2, fw2, lw2)):
+            hit = unpack_bits(bits[c]) & (fw[c][None] == tgt)
+            r = torch.where(hit, lw[c][None], -1).amax(1)
+            root = r if root is None else torch.maximum(root, r)
+        roots.append(root)
+    return torch.stack(roots)
+
+
+def masked_window_match_pick(bits1, bits2, fw1, fw2, lw1, lw2, target):
+    """See :func:`masked_window_match_pick_plain`; CUDA tensors run the
+    border kernel in its match-pick mode."""
+    if bits1.device.type == "cpu":
+        return masked_window_match_pick_plain(bits1, bits2, fw1, fw2, lw1, lw2, target)
+    nchunks, chunk, W = _window_dims(bits1)
+    dev = bits1.device
+    _check("bits1", bits1, torch.int32, (nchunks, chunk, W // 32), dev)
+    _check("bits2", bits2, torch.int32, (nchunks, chunk, W // 32), dev)
+    for nm, t in (("fw1", fw1), ("fw2", fw2), ("lw1", lw1), ("lw2", lw2)):
+        _check(nm, t, torch.int32, (nchunks, W), dev)
+    _check("target", target, torch.int32, (nchunks, chunk), dev)
+    out = torch.empty((nchunks, chunk), dtype=torch.int32, device=dev)
+    lib = _library()
+    _launch("masked_window_match_pick", lib.pbnet_masked_window_match_pick,
+            _ptr(bits1), _ptr(bits2), _ptr(fw1), _ptr(fw2), _ptr(lw1), _ptr(lw2),
+            _ptr(target), _ptr(out), nchunks, chunk, W)
+    return out
 
 
 # ---------------------------------------------------------------------------

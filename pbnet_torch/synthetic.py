@@ -5,6 +5,8 @@ Copies from the JAX package's entry scripts (which the port does not import):
 * :func:`box_surface`, :func:`make_scene` and :data:`BENCH_SHAPES` — the
   bench scene (``bench.py:43-107, 141-156``): a ~4.5 m room of floor, wall
   and 14 box-surface objects, 140k points / ~92k voxels at 2 cm;
+* :data:`BANDED_SHAPES` — the bench shapes with the banded convs switched
+  on (``perf/drive_r4.py:25``'s main-topology spans);
 * :func:`oracle_stage1` — the bench's oracle semantics/offsets/softmax
   (``bench.py:202-210``), which drives stages 2-3 with real clusters (random
   weights predict chaotic semantics, which the class gate rejects);
@@ -17,10 +19,13 @@ Everything is numpy, made from ``np.random.RandomState`` seeds.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
 from .config import StaticShapes
 from .core.quantize import sparse_quantize_np
+from .tools.eval_protocol import SEMANTIC_LABEL_IDX
 
 # bench.py's capacities, fitted to the bench scene (no overflow there)
 BENCH_SHAPES = StaticShapes(
@@ -35,6 +40,19 @@ BENCH_SHAPES = StaticShapes(
     fg_point_cap=56_320,
     nn_exact_cap=1_024,
     grid_extent=(1, 240, 240, 136),
+)
+
+# The eval configuration with banded convs (nn/onehot_conv.py).  Main
+# spans: the JAX package's own (perf/drive_r4.py:25).  Local spans: the JAX
+# package has no tuned value; the spreads measured on the bench scene (local
+# L1 634, down maps <= 1177, up maps <= 424 rows) fit these with room (L1
+# 634 + 15 rows of alignment <= 1024; down and up maps get 2 x 1024).
+# At the bench caps every banded map tiles: each cap is a multiple of
+# onehot_tm = 256 and each input level holds at least one band.
+BANDED_SHAPES = dataclasses.replace(
+    BENCH_SHAPES,
+    onehot_spans=(0, 1280, 768, 0, 0),
+    onehot_spans_local=(0, 1024, 768, 0, 0),
 )
 
 # __graft_entry__._SHAPES: tiny caps for the two-instance scene
@@ -157,6 +175,22 @@ def bench_request(device, seed: int = 0, shapes: StaticShapes = BENCH_SHAPES):
     oracle = tuple(torch.from_numpy(a).to(device)
                    for a in oracle_stage1(xyz, sem, ins, centers, shapes.point_cap))
     return batch, oracle, xyz.shape[0]
+
+
+def bench_eval_inputs(seed: int = 0):
+    """(gt_ids, superpoint) of the bench scene of ``bench_request(seed)``
+    for the ScanNet AP evaluator (tools/eval_protocol.py).
+
+    gt_ids: ``SEMANTIC_LABEL_IDX[sem] * 1000 + ins + 1`` at instance points
+    and 0 at floor and wall, as ``get_gt_instances`` reads them.  The scene
+    has no mesh to segment, so each 2 cm voxel stands in as one superpoint
+    (dense ids 0..V-1).
+    """
+    xyz, sem, ins, _ = make_scene(np.random.RandomState(seed))
+    label = np.asarray(SEMANTIC_LABEL_IDX, np.int64)[sem]
+    gt_ids = np.where(ins >= 0, label * 1000 + ins + 1, 0)
+    _, _, superpoint = sparse_quantize_np(xyz, 0.02)
+    return gt_ids, superpoint
 
 
 def synthetic_batch(shapes: StaticShapes, rng, n_pts=400, n_copies=1) -> dict:

@@ -2,6 +2,11 @@
 clustering on CUDA against the CPU path.  Needs a CUDA device (``cuda``
 marker; each test skips without one).
 
+The banded conv (B6) is held within 1e-4 of the plain version's largest
+output magnitude: both multiply the same bf16-rounded operands in f32, only
+the order of the sums differs (tensor cores against a full-f32 matmul,
+TF32 off).  Every other kernel must equal its plain version exactly.
+
 This file imports neither JAX nor pbnet_tpu, so it runs on a machine that
 has only the port's dependencies:
 
@@ -15,6 +20,7 @@ import pytest
 import torch
 
 from pbnet_torch.models.pbnet import COUNT_MEAN
+from pbnet_torch.nn import onehot_conv as oc
 from pbnet_torch.ops import cluster as cl
 from pbnet_torch.ops import window_kernels as wk
 
@@ -106,3 +112,61 @@ def test_cluster_cuda_matches_cpu(dev):
         else:
             assert torch.equal(g, w), f
     assert int(want.num_clusters) > 0
+
+
+def test_match_pick_matches_plain(dev):
+    rng = np.random.RandomState(3)
+    t, rows_f, rows_i, wins = tiles(rng, dev)
+    b1, b2, _ = wk.neighbor_pack(0.140625, rows_f, rows_i, *wins)
+    b1[:, :7] = 0  # empty rows
+    b2[:, :7] = 0
+    nchunks, chunk, W = b1.shape[0], b1.shape[1], b1.shape[2] * 32
+    fw = [t(rng.randint(-1, 5, (nchunks, W)).astype(np.int32)) for _ in range(2)]
+    lw = [t(rng.randint(0, 500, (nchunks, W)).astype(np.int32)) for _ in range(2)]
+    # targets 9 match no column: no hit
+    target = t(rng.randint(-1, 10, (nchunks, chunk)).astype(np.int32))
+    before = wk.LAUNCHES["masked_window_match_pick"]
+    got = wk.masked_window_match_pick(b1, b2, *fw, *lw, target)
+    want = wk.masked_window_match_pick_plain(b1, b2, *fw, *lw, target)
+    assert torch.equal(got, want)
+    assert wk.LAUNCHES["masked_window_match_pick"] == before + 1
+    assert (got[:, :7] == -1).all() and (got >= 0).any()
+    best, root = wk.masked_window_border(b1, b2, *fw, *lw)
+    assert torch.equal(wk.masked_window_match_pick(b1, b2, *fw, *lw, best), root)
+
+
+def banded_map(rng, m_out, m_in, K, kz, jitter, present=0.7):
+    """Monotone kernel map with key-sorted locality (tests/test_onehot.py)."""
+    kmap = np.full((m_out, K), -1, np.int32)
+    for g in range(K // kz):
+        base = np.clip(np.arange(m_out) * m_in // m_out + rng.randint(-jitter, jitter),
+                       0, m_in - kz)
+        for k in range(kz):
+            mask = rng.rand(m_out) < present
+            kmap[mask, g * kz + k] = base[mask] + k
+    return kmap
+
+
+# 320 rows in 64-row tiles: the last 128-row block is ragged; Cout 96: so is
+# the last 64-column block; the tight spans drop entries (rel == span slots)
+@pytest.mark.parametrize("K,kz,cin,span", [(27, 3, 64, 192), (27, 3, 96, 48),
+                                           (8, 2, 192, 256), (8, 2, 64, 32)])
+def test_onehot_conv_matches_plain(dev, K, kz, cin, span):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(cin + span)
+    m_out, m_in, cout = 320, 400, 96
+    km = torch.from_numpy(banded_map(rng, m_out, m_in, K, kz, 60)).to(dev)
+    plan = oc.build_onehot_plan(km, kz, m_in, tm=64, span=span)
+    assert (int(plan.overflow) > 0) == (span < 64)
+    feats = torch.from_numpy(rng.randn(m_in, cin).astype(np.float32)).to(dev)
+    w = torch.from_numpy((rng.randn(K, cin, cout) * 0.1).astype(np.float32)).to(dev)
+    valid = torch.from_numpy(rng.rand(m_out) < 0.9).to(dev)
+    before = oc.LAUNCHES["onehot_conv"]
+    got = oc.onehot_conv(feats, plan, w, valid)
+    want = oc.onehot_conv_plain(feats, plan, w, valid)
+    torch.cuda.synchronize()
+    assert oc.LAUNCHES["onehot_conv"] == before + 1
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    assert torch.equal(got[~valid], torch.zeros_like(got[~valid]))
+    with pytest.raises(ValueError):
+        oc.onehot_conv(feats, plan, w, valid, torch.float32)

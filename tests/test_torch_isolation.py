@@ -1,8 +1,9 @@
 """The port stands alone: no JAX, no pbnet_tpu, no silent CPU fallback.
 
-* Importing pbnet_torch and building and running a model leaves ``jax``,
-  ``flax`` and ``pbnet_tpu`` out of ``sys.modules`` (checked in a fresh
-  subprocess, since this test process imports JAX for the parity tests).
+* Importing pbnet_torch (every module, the eval ones included) and building
+  and running a model with banded convs leaves ``jax``, ``flax`` and
+  ``pbnet_tpu`` out of ``sys.modules`` (checked in a fresh subprocess, since
+  this test process imports JAX for the parity tests).
 * No file of the port, nor chip_smoke.py, imports them.
 * An entry point called without ``device`` on a machine without CUDA raises.
 * chip_smoke.py fails, printing no result, without a GPU and outside a
@@ -39,11 +40,17 @@ def test_import_and_run_leave_jax_out():
         "import pbnet_torch\n"
         "from pbnet_torch import convert, synthetic\n"
         "from pbnet_torch.models.pbnet import PBNet, batch_to_device\n"
-        "from pbnet_torch.ops import cluster, window_kernels\n"
-        "sh = synthetic.GRAFT_SHAPES\n"
+        "from pbnet_torch import eval_pipeline\n"
+        "from pbnet_torch.nn import onehot_conv\n"
+        "from pbnet_torch.ops import cluster, nms, window_kernels\n"
+        "from pbnet_torch.tools import eval_protocol, metrics\n"
+        "import dataclasses\n"
+        "sh = dataclasses.replace(synthetic.GRAFT_SHAPES, onehot_tm=128, onehot_spans=(256, 128),\n"
+        "                         onehot_spans_local=(256, 128))\n"
         "m = PBNet(sh, device='cpu', backbone_arch='Mini_Unet', dunet_arch='Mini_Unet',\n"
         "          score_arch='Mini_Unet')\n"
         "out = m(batch_to_device(synthetic.synthetic_batch(sh, np.random.RandomState(0)), 'cpu'))\n"
+        "gt, sp = synthetic.bench_eval_inputs()\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'flax', 'pbnet_tpu'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"

@@ -161,3 +161,40 @@ def test_pack_unpack_roundtrip(rng):
     np.testing.assert_array_equal(wk.unpack_bits(words).numpy(), m)
     ref = (m.reshape(5, 7, 3, 32).astype(np.uint64) << np.arange(32, dtype=np.uint64)).sum(-1)
     np.testing.assert_array_equal(u32(words), ref.astype(np.uint32))
+
+
+@pytest.mark.parametrize("label_of_first", [True, False])
+def test_masked_window_match_pick_matches_pallas(rng, interpret, label_of_first):
+    b1, b2 = random_bits(rng)
+    nchunks, chunk, w = b1.shape[0], b1.shape[1], b1.shape[2] * 32
+    fw1 = rng.randint(-1, 6, (nchunks, w)).astype(np.int32)
+    fw2 = rng.randint(-1, 6, (nchunks, w)).astype(np.int32)
+    if label_of_first:
+        lw1, lw2 = fw1 * 3 + 1, fw2 * 3 + 1
+    else:
+        lw1 = rng.randint(0, 500, (nchunks, w)).astype(np.int32)
+        lw2 = rng.randint(0, 500, (nchunks, w)).astype(np.int32)
+    # targets: hits, values no column holds (7: no hit), and -1
+    target = rng.randint(-1, 8, (nchunks, chunk)).astype(np.int32)
+    want = pk.masked_window_match_pick(*(jnp.asarray(a) for a in (b1, b2, fw1, fw2, lw1, lw2,
+                                                                  target)))
+    t = torch.from_numpy
+    got = wk.masked_window_match_pick(t(b1.view(np.int32)), t(b2.view(np.int32)), t(fw1),
+                                      t(fw2), t(lw1), t(lw2), t(target))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert (got.numpy() == -1).any() and (got.numpy() >= 0).any()
+
+
+def test_border_is_reduce_max_then_match_pick(rng):
+    """masked_window_border == masked_window_reduce(max) + match_pick of
+    its result, whatever the labels (tests/test_cluster.py pins the same
+    identity for the Pallas kernels under the pipeline invariant)."""
+    b1, b2 = (torch.from_numpy(b.view(np.int32)) for b in random_bits(rng))
+    nchunks, w = b1.shape[0], b1.shape[2] * 32
+    fw1, fw2 = (torch.from_numpy(rng.randint(-1, 6, (nchunks, w)).astype(np.int32))
+                for _ in range(2))
+    lw1, lw2 = (torch.from_numpy(rng.randint(0, 500, (nchunks, w)).astype(np.int32))
+                for _ in range(2))
+    best, root = wk.masked_window_border(b1, b2, fw1, fw2, lw1, lw2)
+    assert torch.equal(best, wk.masked_window_reduce(b1, b2, fw1, fw2, minimize=False))
+    assert torch.equal(root, wk.masked_window_match_pick(b1, b2, fw1, fw2, lw1, lw2, best))
