@@ -24,10 +24,13 @@ exits non-zero — no phase catches its own failure):
              (topology, map kind, level, Cin, Cout) it launches; at each the
              kernel must agree with its plain version within 1e-4 of the
              plain output's largest magnitude (the same bf16 operands, f32
-             sums in another order), and kernel, plain version and the
-             port's gather conv on the same map and weights
-             (``library_ms``) are timed.  Edge cases at small tiles are in
-             tests/test_torch_cuda.py.
+             sums in another order), a second launch must repeat the first
+             bit for bit, and kernel, plain version and the port's gather
+             conv on the same map and weights (``library_ms``) are timed;
+             each shape's line gives the kernel/gather-conv ratio and the
+             launch's block count, and a last line counts the shapes where
+             the kernel is slower (a number, not a gate).  Edge cases at
+             small tiles are in tests/test_torch_cuda.py.
 3. cluster   binary_cluster on the card and on the CPU (plain path) from the
              same reduced bench scene (30k points, oracle semantics; oracle
              offsets and offsets with 4 cm noise): every ClusterResult field
@@ -124,7 +127,8 @@ SCORE_ATOL = 5e-2
 # kernel-name fragments -> family for the trace phase, first match wins
 FAMILIES = (
     ("clustering kernels", ("neighbor_pack", "masked_window", "window_1nn")),
-    ("banded conv kernel", ("onehot_conv",)),
+    # B6's kernels: the conv, its bf16 operand pass and its split sum
+    ("banded conv kernel", ("onehot_conv", "to_bf16_kernel", "split_sum_kernel")),
     ("gemm", ("gemm", "cutlass", "xmma", "cublas", "sm90_")),
     ("sort", ("radix", "sort", "Sort")),
     ("searchsorted", ("searchsorted",)),
@@ -507,17 +511,27 @@ def main():
         got = oc.onehot_conv(feats, plan, w, valid, dt)
         err = close_err(got, oc.onehot_conv_plain(feats, plan, w, valid, dt), B6_RTOL)
         close_err(got, sparse_ops.gather_conv(feats, kmap, w, valid), B6_RTOL)
+        # the slot split sums its partial tiles in a fixed order: a second
+        # launch must repeat the first bit for bit
+        if not torch.equal(got.view(torch.int32), oc.onehot_conv(feats, plan, w, valid, dt)
+                           .view(torch.int32)):
+            raise AssertionError(f"{key}: two launches of the banded conv differ")
         ms = time_kernel(lambda: oc.onehot_conv(feats, plan, w, valid, dt))
         plain_ms = time_plain(lambda: oc.onehot_conv_plain(feats, plan, w, valid, dt))
         lib_ms = time_kernel(lambda: sparse_ops.gather_conv(feats, kmap, w, valid))
         bms, by, detail = b6_bound(feats, plan, w, valid, got)
-        log(f"[kernels] {name} {key} x{n}/request: max err {err:.3e}; kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.3f} ms, gather conv {lib_ms:.4f} ms, bound {bms:.4f} ms "
-            f"({by}; {detail})")
+        t = oc.LAST_TILING["onehot_conv"]  # the launch shape the wrapper used
+        log(f"[kernels] {name} {key} x{n}/request: max err {err:.3e}, repeat bitwise equal; "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, gather conv {lib_ms:.4f} ms "
+            f"(kernel/gather {ms / lib_ms:.3f}), bound {bms:.4f} ms ({by}; {detail}); "
+            f"{t.blocks} blocks ({t.bm} rows, {t.nsplit} split)")
         shape_rows.append(dict(shape=key, per_request=n, max_abs_err=err, ms=ms,
                                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
                                bound_by=by))
     del b6_calls
+    slower = [r["shape"] for r in shape_rows if r["ms"] > r["library_ms"]]
+    log(f"[kernels] {name}: {len(slower)} of {len(shape_rows)} shapes slower than the gather "
+        f"conv {slower}")
 
     def total(k):
         return sum(r["per_request"] * r[k] for r in shape_rows)

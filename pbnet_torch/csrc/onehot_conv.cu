@@ -13,144 +13,409 @@
 // What bounds it on an H100: the products are 2 * (present in-band
 // entries) * cin * cout flops, which the bf16 tensor cores do in
 // microseconds; the floor is the bytes of the feature table, the weights,
-// the plan and the output, read or written once.  What a straight design
-// pays beyond that is the re-reading: every output row reads up to K input
-// rows, and every block reads every slot's weights.
+// the plan and the output, read or written once (bytes bound every bench
+// shape but main k3 L2 192->128, where the two are within 1.2x).  What a
+// design pays beyond that is L2 traffic and tensor-core work on absent
+// rows.
 //
 // Design.  The TPU kernel DMAs each (dx, dy) group's whole band into VMEM
 // and gathers with a one-hot matrix product on the MXU.  A band does not
 // fit in shared memory here (L1 k3: 1280 rows x 128 ch x 2 B = 320 KB), and
-// a one-hot row times the band is exactly that band row, so this kernel
-// reads each present row straight from global memory: the band keeps a
-// tile's reads within a narrow, L2-resident stretch of the table.  A block
-// owns BM = 128 output rows and BN = 64 output columns.  Per slot and per
-// 64-channel chunk it stages the 128 gathered rows (absent ones as zeros)
-// and the weight chunk in shared memory, rounding f32 to bf16 on the way,
-// and 8 warps multiply them on the tensor cores (WMMA 16x16x16 bf16, f32
-// accumulators; warp w owns rows 16w..16w+15).  A slot that no row of the
-// block uses is skipped.  The accumulators go through shared memory so the
-// valid_out mask and the ragged column edge are applied on the way out.
-// The kernel does no f32 arithmetic outside the tensor cores, so the
-// library-wide -fmad=false changes nothing here.
+// a one-hot row times the band is exactly that band row, so the kernel
+// gathers each present row straight from global memory; the band keeps a
+// tile's reads in a narrow, L2-resident stretch of the table.
 //
-// The launcher returns cudaGetLastError() so the caller can raise on a
+// 1. One pass (`to_bf16_kernel`) rounds the feature table and the weights
+//    to bf16 once per call, zero-padded to cin_p = cin rounded up to 32 and
+//    to the column pitch, so the conv reads 16-byte aligned bf16 rows with
+//    no ragged edge.
+// 2. A block owns BM = 64 or 128 output rows (4 or 8 warps, 16 rows each)
+//    and all BN <= 128 output columns (cout rounded up to 32; wider outputs
+//    take column strips), so each present (row, slot) entry is gathered
+//    once.  It first writes the source row of each (row, slot) into shared
+//    memory and ORs, per warp, the slots its 16 rows use.
+// 3. It walks the slots some row of the block uses, 32 input channels per
+//    step, through a ring of 4 stages in dynamic shared memory: cp.async
+//    16-byte copies bring the step's gathered rows (absent rows zero-filled,
+//    src-size 0: no read) and the slot's weight slice, while up to three
+//    later steps are in flight.
+// 4. Each warp multiplies its 16 rows on the tensor cores (ldmatrix and
+//    mma.sync m16n8k16, bf16 -> f32 accumulators in registers) and skips a
+//    slot that none of its own rows uses.  Row pitches of 80 B (A) and
+//    2 * BN + 16 B (B) keep every ldmatrix free of bank conflicts.
+// 5. The wrapper (nn/onehot_conv.py `tiling`) picks BM = 128 when that gives
+//    at least two blocks per SM, else 64, and splits the slots across
+//    `nsplit` blocks (grid z) while that gives fewer.  A split writes
+//    partial tiles; `split_sum_kernel` adds them in split order (fixed: no
+//    atomics), so every output repeats bit for bit from run to run.
+//
+// Per shape class at the bench shapes (132 SMs).  Bound: the larger of the
+// bytes moved once and the flops of the present entries (chip_smoke.py
+// `b6_bound`).  L2 MB: what this design moves between L2 and the SMs, at
+// most: gathered rows 2 * entries * cin_p, weight slices 2 * K * cin_p * BN
+// per row block, the bf16 pass, the output (and split partials).
+//
+//   class                    rows     bound  blocks (BM, split)  L2 MB (weights)
+//   main k3 L1, Cin 96-128   39,424   bytes   308 (128, 1)       268-352 (153-204)
+//   local k3 L1, Cin 96-128  20,992   bytes   328 (64, 1)        223-294 (163-218)
+//   main k3 L2, Cin 64-192   10,240   bytes*  320 (64, 2)         68-298 (35-212)
+//   local k3 L2, Cin 64-192   5,888   bytes   276 (64, 3)         42-178 (20-122)
+//   up L0/L1 (K 8)           20,992-  bytes   308-722 (64-128, 1) 83-183 (48-107)
+//                            92,416
+//   down L3 (K 8)            1,536 /  bytes   192 / 256 (64, 8/4) 11-19 (2-4)
+//                            4,096
+//   (* main k3 L2 192->128: operations, by 1.1x.)  The weight slices are
+//   most of the L2 bytes; they stay L2-resident (at most 1.3 MB per call).
+//   Up maps use one slot of 8 per row, so their 16-row warps multiply mostly
+//   zero rows.  PERF.md holds the measured times.
+//
+// f32 arithmetic outside the tensor cores: only the fixed-order adds of the
+// split partials, so the library-wide -fmad=false changes nothing here.
+//
+// The launcher returns the first CUDA error so the caller can raise on a
 // refused launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
 
-using namespace nvcuda;
+constexpr int KC = 32;         // input channels per pipeline step
+constexpr int STAGES = 4;      // cp.async ring depth
+constexpr int MAX_SLOTS = 32;  // slots one block walks (a 32-bit mask)
+constexpr int LDA = KC + 8;    // bf16 pitch of a staged row (80 B)
 
-constexpr int BM = 128;            // output rows per block
-constexpr int BN = 64;             // output columns per block
-constexpr int KC = 64;             // input channels staged per pass
-constexpr int THREADS = 256;       // 8 warps, one 16-row strip each
-constexpr int LDA = KC + 8;        // bf16 row pitch of the staged rows
-constexpr int LDB = BN + 8;        // bf16 row pitch of the staged weights
-constexpr int LDC = BN + 4;        // f32 row pitch of the output tile
-constexpr int A_BYTES = BM * LDA * 2;
-constexpr int B_BYTES = KC * LDB * 2;
-constexpr int C_BYTES = BM * LDC * 4;
-constexpr int SMEM_BYTES = (A_BYTES + B_BYTES > C_BYTES) ? A_BYTES + B_BYTES : C_BYTES;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-__global__ void __launch_bounds__(THREADS)
-onehot_conv_kernel(const float* __restrict__ feats, const float* __restrict__ w,
+// 16-byte async copy; full == false zero-fills the destination, reads nothing
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ---------------------------------------------------------------------------
+// bf16 operands: feats (m_in, cin) -> (m_in, cin_p); W (K, cin, cout) ->
+// (K, cin_p, w_pitch); zero padding.  Eight outputs (16 bytes) per thread.
+// ---------------------------------------------------------------------------
+__global__ void to_bf16_kernel(const float* __restrict__ feats, __nv_bfloat16* __restrict__ fo,
+                               int m_in, int cin, int cin_p, const float* __restrict__ w,
+                               __nv_bfloat16* __restrict__ wo, int K, int cout, int w_pitch) {
+  const size_t pf = cin_p / 8, pw = w_pitch / 8;
+  const size_t nf = (size_t)m_in * pf, n = nf + (size_t)K * cin_p * pw;
+  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < n;
+       e += (size_t)gridDim.x * blockDim.x) {
+    const float* src;
+    int c0, len;
+    __nv_bfloat16* dst;
+    if (e < nf) {
+      const size_t row = e / pf;
+      c0 = (int)(e - row * pf) * 8;
+      src = feats + row * cin;
+      len = cin;
+      dst = fo + e * 8;
+    } else {
+      const size_t e2 = e - nf, row = e2 / pw;  // row = s * cin_p + k
+      const int k = (int)(row % cin_p);
+      c0 = (int)(e2 - row * pw) * 8;
+      src = w + ((row / cin_p) * cin + k) * cout;
+      len = k < cin ? cout : 0;
+      dst = wo + e2 * 8;
+    }
+    uint32_t packed[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int c = c0 + 2 * q;
+      const float a = c < len ? src[c] : 0.0f;
+      const float b = c + 1 < len ? src[c + 1] : 0.0f;
+      const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+      packed[q] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    *reinterpret_cast<uint4*>(dst) = make_uint4(packed[0], packed[1], packed[2], packed[3]);
+  }
+}
+
+template <int WARPS, int BN>
+constexpr int conv_smem_bytes() {
+  return STAGES * (16 * WARPS * LDA + KC * (BN + 8)) * 2 + MAX_SLOTS * (16 * WARPS + 1) * 4;
+}
+
+// ---------------------------------------------------------------------------
+// The conv.  Grid (row blocks, column strips, slot splits).  With one split
+// `out` is y (valid_out applied); with more, split z writes its partial
+// tile to out + z * m_out * cout and split_sum_kernel finishes.
+// ---------------------------------------------------------------------------
+template <int WARPS, int BN>
+__global__ void __launch_bounds__(WARPS * 32, WARPS == 8 ? 2 : 3)
+onehot_conv_kernel(const __nv_bfloat16* __restrict__ feats, const __nv_bfloat16* __restrict__ w,
                    const int* __restrict__ starts, const int* __restrict__ rel,
-                   const bool* __restrict__ valid_out, float* __restrict__ out,
-                   int cin, int cout, int K, int kz, int tm, int m_out, int span) {
-  __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
-  __shared__ int src[BM];
-  __nv_bfloat16* sa = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sb = reinterpret_cast<__nv_bfloat16*>(smem + A_BYTES);
-  float* sc = reinterpret_cast<float*>(smem);  // reused after the last product
+                   const bool* __restrict__ valid_out, float* __restrict__ out, int cin_p,
+                   int cout, int w_pitch, int K, int kz, int tm, int m_out, int span,
+                   int slots_per_split) {
+  constexpr int BM = 16 * WARPS, THREADS = 32 * WARPS;
+  constexpr int LDB = BN + 8, NT = BN / 8;
+  constexpr int A_ELEMS = BM * LDA, B_ELEMS = KC * LDB;
+  constexpr int SP = BM + 1;  // pitch of the source-row table
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* sa = reinterpret_cast<__nv_bfloat16*>(smem);  // [STAGES][BM][LDA]
+  __nv_bfloat16* sb = sa + STAGES * A_ELEMS;                   // [STAGES][KC][LDB]
+  int* src = reinterpret_cast<int*>(sb + STAGES * B_ELEMS);    // [slot][SP], -1 absent
+  __shared__ int act[MAX_SLOTS];
+  __shared__ unsigned warp_masks[WARPS];
 
-  const int row0 = blockIdx.x * BM;
-  const int col0 = blockIdx.y * BN;
-  const int warp = threadIdx.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = blockIdx.x * BM, col0 = blockIdx.y * BN;
+  const int s_lo = blockIdx.z * slots_per_split;
+  const int nslots = min(slots_per_split, K - s_lo);
   const int G = K / kz;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[BN / 16];
-#pragma unroll
-  for (int n = 0; n < BN / 16; ++n) wmma::fill_fragment(acc[n], 0.0f);
-
-  for (int s = 0; s < K; ++s) {
-    // source row of each output row for this slot (-1: absent or dropped)
-    int used = 0;
-    if (threadIdx.x < BM) {
-      const int m = row0 + threadIdx.x;
-      int r = -1;
-      if (m < m_out) {
-        const int off = rel[(size_t)m * K + s];
-        if (off < span) r = starts[(m / tm) * G + s / kz] + off;
-      }
-      src[threadIdx.x] = r;
-      used = r >= 0;
+  // source row of every (row, slot); consecutive threads read one row's slots
+  for (int e = threadIdx.x; e < BM * nslots; e += THREADS) {
+    const int r = e / nslots, j = e - r * nslots;
+    const int m = row0 + r, s = s_lo + j;
+    int v = -1;
+    if (m < m_out) {
+      const int off = rel[(size_t)m * K + s];
+      if (off < span) v = starts[(m / tm) * G + s / kz] + off;
     }
-    // also orders the writes of src before its reads, and the previous
-    // slot's products before this slot's staging
-    if (!__syncthreads_or(used)) continue;
-
-    for (int c0 = 0; c0 < cin; c0 += KC) {
-      const int kc = min(KC, cin - c0);
-      // gathered rows: thread -> (row, channel); consecutive threads read
-      // consecutive channels of one row
-      for (int e = threadIdx.x; e < BM * KC; e += THREADS) {
-        const int r = e / KC, c = e % KC;
-        const int sr = src[r];
-        const float v = (sr >= 0 && c < kc) ? feats[(size_t)sr * cin + c0 + c] : 0.0f;
-        sa[r * LDA + c] = __float2bfloat16_rn(v);
-      }
-      // weight chunk W[s, c0:c0+KC, col0:col0+BN]
-      const float* ws = w + (size_t)s * cin * cout;
-      for (int e = threadIdx.x; e < KC * BN; e += THREADS) {
-        const int k = e / BN, n = e % BN;
-        const float v = (k < kc && col0 + n < cout) ? ws[(size_t)(c0 + k) * cout + col0 + n] : 0.0f;
-        sb[k * LDB + n] = __float2bfloat16_rn(v);
-      }
-      __syncthreads();
-      const int ksteps = (kc + 15) / 16;
-      for (int k = 0; k < ksteps; ++k) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, sa + warp * 16 * LDA + k * 16, LDA);
+    src[j * SP + r] = v;
+  }
+  __syncthreads();
+  bool used = false;  // lane j: does a row of this warp use slot j?
+  if (lane < nslots) {
 #pragma unroll
-        for (int n = 0; n < BN / 16; ++n) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-          wmma::load_matrix_sync(b, sb + k * 16 * LDB + n * 16, LDB);
-          wmma::mma_sync(acc[n], a, b, acc[n]);
+    for (int i = 0; i < 16; ++i) used |= src[lane * SP + warp * 16 + i] >= 0;
+  }
+  const unsigned wmask = __ballot_sync(0xffffffffu, used);
+  if (lane == 0) warp_masks[warp] = wmask;
+  __syncthreads();
+  unsigned bmask = 0;
+#pragma unroll
+  for (int i = 0; i < WARPS; ++i) bmask |= warp_masks[i];
+  if (threadIdx.x == 0) {
+    int n = 0;
+    for (unsigned b = bmask; b; b &= b - 1) act[n++] = __ffs(b) - 1;
+  }
+  __syncthreads();
+
+  const int nchunk = cin_p / KC;
+  const int nsteps = __popc(bmask) * nchunk;
+
+  // step -> (slot act[step / nchunk], channels c0..c0+KC) into ring buffer
+  auto load = [&](int step, int buf) {
+    const int q = step / nchunk, j = act[q];
+    const int c0 = (step - q * nchunk) * KC;
+    __nv_bfloat16* da = sa + buf * A_ELEMS;
+    const int* sj = src + j * SP;
+#pragma unroll
+    for (int e = threadIdx.x; e < BM * (KC / 8); e += THREADS) {
+      const int r = e >> 2, p = e & 3;
+      const int sr = sj[r];
+      cp_async16(da + r * LDA + p * 8, feats + (size_t)max(sr, 0) * cin_p + c0 + p * 8, sr >= 0);
+    }
+    __nv_bfloat16* db = sb + buf * B_ELEMS;
+    const __nv_bfloat16* ws = w + ((size_t)(s_lo + j) * cin_p + c0) * w_pitch + col0;
+#pragma unroll
+    for (int e = threadIdx.x; e < KC * (BN / 8); e += THREADS) {
+      const int k = e / (BN / 8), p = e - k * (BN / 8);
+      cp_async16(db + k * LDB + p * 8, ws + (size_t)k * w_pitch + p * 8, true);
+    }
+  };
+
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < nsteps) load(i, i);
+    cp_async_commit();
+  }
+  for (int i = 0; i < nsteps; ++i) {
+    cp_async_wait<STAGES - 2>();  // this thread's copies of step i landed
+    __syncthreads();              // everyone's; and step i-1's buffer is free
+    const int nx = i + STAGES - 1;
+    if (nx < nsteps) load(nx, nx % STAGES);
+    cp_async_commit();
+    if ((wmask >> act[i / nchunk]) & 1u) {
+      const __nv_bfloat16* ta = sa + (i % STAGES) * A_ELEMS + warp * 16 * LDA;
+      const __nv_bfloat16* tb = sb + (i % STAGES) * B_ELEMS;
+#pragma unroll
+      for (int kk = 0; kk < KC; kk += 16) {
+        uint32_t a[4];
+        ldmatrix_x4(a, ta + (lane & 15) * LDA + kk + (lane >> 4) * 8);
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, tb + (kk + (lane & 15)) * LDB + np * 16 + (lane >> 4) * 8);
+          mma_bf16(acc[2 * np], a, b[0], b[1]);
+          mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
         }
       }
-      __syncthreads();  // the staged chunk is consumed
     }
   }
+  cp_async_wait<0>();
 
-  __syncthreads();
+  // accumulator (n-tile n, h): row g + 8h, columns 2q, 2q + 1
+  const bool split = gridDim.z > 1;
+  float* o = out + (size_t)blockIdx.z * m_out * cout;
+  const int g = lane >> 2, q = lane & 3;
 #pragma unroll
-  for (int n = 0; n < BN / 16; ++n)
-    wmma::store_matrix_sync(sc + warp * 16 * LDC + n * 16, acc[n], LDC, wmma::mem_row_major);
-  __syncthreads();
-  for (int e = threadIdx.x; e < BM * BN; e += THREADS) {
-    const int r = e / BN, n = e % BN;
-    const int m = row0 + r, col = col0 + n;
-    if (m < m_out && col < cout) out[(size_t)m * cout + col] = valid_out[m] ? sc[r * LDC + n] : 0.0f;
+  for (int h = 0; h < 2; ++h) {
+    const int m = row0 + warp * 16 + g + 8 * h;
+    if (m >= m_out) continue;
+    const bool keep = split || valid_out[m];
+    float* orow = o + (size_t)m * cout;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int col = col0 + n * 8 + 2 * q;
+      const float a = keep ? acc[n][2 * h] : 0.0f, b = keep ? acc[n][2 * h + 1] : 0.0f;
+      if (col + 1 < cout && !(cout & 1)) {
+        *reinterpret_cast<float2*>(orow + col) = make_float2(a, b);
+      } else {
+        if (col < cout) orow[col] = a;
+        if (col + 1 < cout) orow[col + 1] = b;
+      }
+    }
   }
+}
+
+// y[e] = sum over splits z = 0, 1, ... of part[z][e] (in that order), 0 where
+// valid_out is false
+__global__ void split_sum_kernel(const float* __restrict__ part, const bool* __restrict__ valid_out,
+                                 float* __restrict__ out, int nsplit, int m_out, int cout) {
+  const size_t n = (size_t)m_out * cout;
+  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < n;
+       e += (size_t)gridDim.x * blockDim.x) {
+    float s = 0.0f;
+    if (valid_out[e / cout]) {
+      s = part[e];
+      for (int z = 1; z < nsplit; ++z) s = __fadd_rn(s, part[z * n + e]);
+    }
+    out[e] = s;
+  }
+}
+
+// one thread per element (the loops stride past 2^20 blocks)
+inline int grid_stride_blocks(size_t n, int threads) {
+  const size_t b = (n + threads - 1) / threads;
+  return (int)(b < (1u << 20) ? (b > 0 ? b : 1) : (1u << 20));
+}
+
+// shared memory above the default 48 KB needs an opt-in
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+template <int WARPS, int BN>
+cudaError_t launch_conv(dim3 grid, cudaStream_t stream, const __nv_bfloat16* feats,
+                        const __nv_bfloat16* w, const int* starts, const int* rel,
+                        const bool* valid_out, float* out, int cin_p, int cout, int w_pitch,
+                        int K, int kz, int tm, int m_out, int span, int slots_per_split) {
+  constexpr int smem = conv_smem_bytes<WARPS, BN>();
+  const cudaError_t e = allow_smem(onehot_conv_kernel<WARPS, BN>, smem);
+  if (e != cudaSuccess) return e;
+  onehot_conv_kernel<WARPS, BN><<<grid, WARPS * 32, smem, stream>>>(
+      feats, w, starts, rel, valid_out, out, cin_p, cout, w_pitch, K, kz, tm, m_out, span,
+      slots_per_split);
+  return cudaGetLastError();
+}
+
+template <int WARPS>
+cudaError_t launch_bn(int bn, dim3 grid, cudaStream_t stream, const __nv_bfloat16* feats,
+                      const __nv_bfloat16* w, const int* starts, const int* rel,
+                      const bool* valid_out, float* out, int cin_p, int cout, int w_pitch,
+                      int K, int kz, int tm, int m_out, int span, int slots_per_split) {
+#define PBNET_CONV(B)                                                                       \
+  case B:                                                                                   \
+    return launch_conv<WARPS, B>(grid, stream, feats, w, starts, rel, valid_out, out, cin_p, \
+                                 cout, w_pitch, K, kz, tm, m_out, span, slots_per_split);
+  switch (bn) {
+    PBNET_CONV(32)
+    PBNET_CONV(64)
+    PBNET_CONV(96)
+    PBNET_CONV(128)
+  }
+#undef PBNET_CONV
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-int pbnet_onehot_conv(const float* feats, const float* w, const int* starts,
-                      const int* rel, const bool* valid_out, float* out, int m_in,
-                      int cin, int cout, int K, int kz, int tm, int m_out, int span,
-                      void* stream) {
-  (void)m_in;  // bounds every source row (starts + span <= m_in by the plan)
-  const dim3 grid((m_out + BM - 1) / BM, (cout + BN - 1) / BN);
-  onehot_conv_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      feats, w, starts, rel, valid_out, out, cin, cout, K, kz, tm, m_out, span);
+// feats_bf16 (m_in, cin_p) and w_bf16 (K, cin_p, w_pitch) are scratch for
+// the rounded operands; part (nsplit, m_out, cout) f32 is scratch when
+// nsplit > 1 (else unused).  bm in {64, 128}; bn in {32, 64, 96, 128}
+// divides w_pitch; cin_p is cin rounded up to 32; slots_per_split <= 32.
+int pbnet_onehot_conv(const float* feats, const float* w, const int* starts, const int* rel,
+                      const bool* valid_out, float* out, void* feats_bf16, void* w_bf16,
+                      float* part, int m_in, int cin, int cin_p, int cout, int w_pitch, int K,
+                      int kz, int tm, int m_out, int span, int bm, int bn,
+                      int slots_per_split, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (slots_per_split < 1 || slots_per_split > MAX_SLOTS || cin_p % KC || w_pitch % bn)
+    return (int)cudaErrorInvalidValue;
+  auto* fb = static_cast<__nv_bfloat16*>(feats_bf16);
+  auto* wb = static_cast<__nv_bfloat16*>(w_bf16);
+  const size_t n8 = ((size_t)m_in * cin_p + (size_t)K * cin_p * w_pitch) / 8;
+  to_bf16_kernel<<<grid_stride_blocks(n8, 256), 256, 0, st>>>(feats, fb, m_in, cin, cin_p, w,
+                                                             wb, K, cout, w_pitch);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int nsplit = (K + slots_per_split - 1) / slots_per_split;
+  const dim3 grid((m_out + bm - 1) / bm, w_pitch / bn, nsplit);
+  float* dst = nsplit > 1 ? part : out;
+  if (bm == 128)
+    e = launch_bn<8>(bn, grid, st, fb, wb, starts, rel, valid_out, dst, cin_p, cout, w_pitch, K,
+                     kz, tm, m_out, span, slots_per_split);
+  else if (bm == 64)
+    e = launch_bn<4>(bn, grid, st, fb, wb, starts, rel, valid_out, dst, cin_p, cout, w_pitch, K,
+                     kz, tm, m_out, span, slots_per_split);
+  else
+    e = cudaErrorInvalidValue;
+  if (e != cudaSuccess || nsplit == 1) return (int)e;
+  split_sum_kernel<<<grid_stride_blocks((size_t)m_out * cout, 256), 256, 0, st>>>(
+      part, valid_out, out, nsplit, m_out, cout);
   return (int)cudaGetLastError();
 }
 

@@ -7,7 +7,7 @@
 //   neighbor_pack        replaces pbnet_tpu/ops/pallas_kernels.py::neighbor_pack
 //   masked_window_reduce replaces pallas_kernels.py::masked_window_reduce
 //   masked_window_border replaces pallas_kernels.py::masked_window_border
-//     and, given per-row targets in place of its first pass,
+//     and, in its PICK mode (a per-row target fixes the first-orig value),
 //     pallas_kernels.py::masked_window_match_pick
 //   window_1nn           replaces pallas_kernels.py::window_1nn
 //
@@ -198,17 +198,28 @@ masked_window_reduce_kernel(const uint32_t* __restrict__ bits1,
 }
 
 // ---------------------------------------------------------------------------
-// B3 masked_window_border.  Bound on H100: as B2 (each word is read twice by
-// the two passes, but the second read of a row hits L1/L2).
-// Design: as B2, one warp per row.  Pass 1 takes the max first-orig value
-// over set bits and shuffles it to every lane; pass 2 takes the max label
-// over set bits whose first-orig equals it.  -1 where no bits are set.
+// B3 masked_window_border.  Bound on H100: as B2, integer operations per set
+// bit (oracle content sets nearly half of all bits).
+// Design: one warp per row, one pass.  The chunk's (first-orig, label) pairs
+// of both windows sit in shared memory as int2, in column order.  The warp
+// reads 32 of the row's words at once (coalesced, one per lane) and walks
+// them one word at a time: the word is broadcast by shuffle (an all-zero
+// word or group of words is skipped, uniformly), and lane b tests bit b and
+// reads the pair of column 32w + b.  The 32 lanes read 32 consecutive pairs,
+// so no bank conflicts, and every word costs the same few branch-free
+// operations whatever its density.  Each lane keeps the lexicographic max of
+// (first, label) over its set bits, starting from (-1, -1); a shuffle
+// reduction under the same order finishes the row: best = first, root =
+// max(label, -1).  That equals the two-pass definition (max first, then max
+// label among set bits whose first equals it; -1 on an empty row) for any
+// labels, rows whose set bits all have first = -1 included.
 //
-// B5 masked_window_match_pick is the same kernel with `target` given: the
-// row's target replaces pass 1's maximum, pass 2 runs as it is, and only
-// the label is written (best_out is null).  Its bound is B2's with the
-// words read once.
+// B5 masked_window_match_pick is the same kernel with PICK: the row's target
+// fixes `first`, the walk keeps the max label over set bits whose first
+// equals it (a filtered max from -1), and only the label is written.  Its
+// bound is B2's with the words read once.
 // ---------------------------------------------------------------------------
+template <bool PICK>
 __global__ void __launch_bounds__(THREADS)
 masked_window_border_kernel(const uint32_t* __restrict__ bits1,
                             const uint32_t* __restrict__ bits2,
@@ -217,58 +228,57 @@ masked_window_border_kernel(const uint32_t* __restrict__ bits1,
                             const int* __restrict__ target,
                             int* __restrict__ best_out, int* __restrict__ root_out,
                             int chunk, int W) {
-  extern __shared__ int sval[];  // [fw1 | fw2 | lw1 | lw2], each W
+  extern __shared__ int2 spair[];  // [2][W] (first-orig, label) per window column
   const int c = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nw = W >> 5;
   for (int j = threadIdx.x; j < W; j += THREADS) {
     const size_t o = (size_t)c * W + j;
-    sval[j] = fw1[o];
-    sval[W + j] = fw2[o];
-    sval[2 * W + j] = lw1[o];
-    sval[3 * W + j] = lw2[o];
+    spair[j] = make_int2(fw1[o], lw1[o]);
+    spair[W + j] = make_int2(fw2[o], lw2[o]);
   }
   __syncthreads();
   for (int k = 0; k < RPW; ++k) {
     const int r = blockIdx.x * ROWS_PER_BLOCK + warp * RPW + k;
-    if (r >= chunk) break;
-    int mx = -1;
-    if (target != nullptr) {  // uniform: B5 mode
-      mx = target[(size_t)c * chunk + r];
-    } else {
-      for (int win = 0; win < 2; ++win) {
-        const uint32_t* bits = (win == 0 ? bits1 : bits2) + ((size_t)c * chunk + r) * nw;
-        const int* f = sval + win * W;
-        for (int w = lane; w < nw; w += 32) {
-          uint32_t word = bits[w];
-          while (word) {
-            const int b = __ffs(word) - 1;
-            word &= word - 1u;
-            mx = max(mx, f[(w << 5) + b]);
+    if (r >= chunk) break;  // uniform across the warp
+    const size_t row = (size_t)c * chunk + r;
+    int bf = PICK ? target[row] : -1;
+    int bl = -1;
+    for (int win = 0; win < 2; ++win) {
+      const uint32_t* bits = (win == 0 ? bits1 : bits2) + row * nw;
+      const int2* pairs = spair + win * W + lane;
+      for (int w0 = 0; w0 < nw; w0 += 32) {
+        const uint32_t mine = w0 + lane < nw ? bits[w0 + lane] : 0u;
+        if (!__any_sync(0xffffffffu, mine != 0u)) continue;
+        const int n = min(32, nw - w0);
+#pragma unroll 4
+        for (int j = 0; j < n; ++j) {
+          const uint32_t word = __shfl_sync(0xffffffffu, mine, j);
+          if (word == 0u) continue;  // uniform
+          const int2 p = pairs[(w0 + j) << 5];
+          const bool bit = (word >> lane) & 1u;
+          if (PICK) {
+            if (bit && p.x == bf && p.y > bl) bl = p.y;
+          } else if (bit && (p.x > bf || (p.x == bf && p.y > bl))) {
+            bf = p.x;
+            bl = p.y;
           }
         }
       }
-      for (int o = 16; o > 0; o >>= 1) mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, o));
     }
-    int acc = -1;
-    for (int win = 0; win < 2; ++win) {
-      const uint32_t* bits = (win == 0 ? bits1 : bits2) + ((size_t)c * chunk + r) * nw;
-      const int* f = sval + win * W;
-      const int* l = sval + (2 + win) * W;
-      for (int w = lane; w < nw; w += 32) {
-        uint32_t word = bits[w];
-        while (word) {
-          const int b = __ffs(word) - 1;
-          word &= word - 1u;
-          const int j = (w << 5) + b;
-          if (f[j] == mx) acc = max(acc, l[j]);
-        }
+    for (int o = 16; o > 0; o >>= 1) {
+      const int of = __shfl_xor_sync(0xffffffffu, bf, o);
+      const int ol = __shfl_xor_sync(0xffffffffu, bl, o);
+      if (PICK) {
+        bl = max(bl, ol);
+      } else if (of > bf || (of == bf && ol > bl)) {
+        bf = of;
+        bl = ol;
       }
     }
-    for (int o = 16; o > 0; o >>= 1) acc = max(acc, __shfl_xor_sync(0xffffffffu, acc, o));
     if (lane == 0) {
-      if (best_out != nullptr) best_out[(size_t)c * chunk + r] = mx;
-      root_out[(size_t)c * chunk + r] = acc;
+      if (!PICK) best_out[row] = bf;
+      root_out[row] = max(bl, -1);
     }
   }
 }
@@ -412,11 +422,11 @@ int pbnet_masked_window_border(const int* bits1, const int* bits2, const int* fw
                                const int* fw2, const int* lw1, const int* lw2,
                                int* best, int* root, int nchunks, int chunk, int W,
                                void* stream) {
-  const size_t smem = (size_t)4 * W * sizeof(int);
-  cudaError_t e = allow_smem(masked_window_border_kernel, smem);
+  const size_t smem = (size_t)2 * W * sizeof(int2);
+  cudaError_t e = allow_smem(masked_window_border_kernel<false>, smem);
   if (e != cudaSuccess) return (int)e;
-  masked_window_border_kernel<<<grid_for(nchunks, chunk), THREADS, smem,
-                                (cudaStream_t)stream>>>(
+  masked_window_border_kernel<false><<<grid_for(nchunks, chunk), THREADS, smem,
+                                       (cudaStream_t)stream>>>(
       (const uint32_t*)bits1, (const uint32_t*)bits2, fw1, fw2, lw1, lw2, nullptr, best,
       root, chunk, W);
   return (int)cudaGetLastError();
@@ -426,11 +436,11 @@ int pbnet_masked_window_match_pick(const int* bits1, const int* bits2, const int
                                    const int* fw2, const int* lw1, const int* lw2,
                                    const int* target, int* out, int nchunks, int chunk,
                                    int W, void* stream) {
-  const size_t smem = (size_t)4 * W * sizeof(int);
-  cudaError_t e = allow_smem(masked_window_border_kernel, smem);
+  const size_t smem = (size_t)2 * W * sizeof(int2);
+  cudaError_t e = allow_smem(masked_window_border_kernel<true>, smem);
   if (e != cudaSuccess) return (int)e;
-  masked_window_border_kernel<<<grid_for(nchunks, chunk), THREADS, smem,
-                                (cudaStream_t)stream>>>(
+  masked_window_border_kernel<true><<<grid_for(nchunks, chunk), THREADS, smem,
+                                      (cudaStream_t)stream>>>(
       (const uint32_t*)bits1, (const uint32_t*)bits2, fw1, fw2, lw1, lw2, target, nullptr,
       out, chunk, W);
   return (int)cudaGetLastError();

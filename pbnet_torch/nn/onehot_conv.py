@@ -15,6 +15,8 @@ bf16(W[s])`` accumulated in f32, 0 where ``valid_out`` is false.
 
 * ``onehot_conv`` launches the CUDA kernel ``csrc/onehot_conv.cu`` for CUDA
   tensors (or raises) and runs ``onehot_conv_plain`` for CPU tensors.
+  ``tiling`` picks the kernel's launch shape (block height, slot split)
+  from the conv's shape.
 * ``onehot_conv_plain`` computes the same function in plain PyTorch from
   ``(starts, rel)`` alone, never from the raw map, so dropped entries drop.
 
@@ -40,7 +42,12 @@ from .. import _build
 # package's gate, which the port keeps so both run the same convs banded).
 MIN_CIN = 64
 
+# kernel slots one block walks (the kernel keeps them in a 32-bit mask)
+MAX_SLOTS = 32
+
 LAUNCHES = {"onehot_conv": 0}
+# the Tiling of the wrapper's last launch (None before the first)
+LAST_TILING = {"onehot_conv": None}
 
 _SOURCE = "onehot_conv"
 _lib = None
@@ -156,22 +163,57 @@ def onehot_conv_plain(feats, plan: OnehotPlan, weights, valid_out,
     return torch.where(valid_out[:, None], y, 0.0)
 
 
+@dataclass(frozen=True)
+class Tiling:
+    """Launch shape of the CUDA kernel (see ``csrc/onehot_conv.cu``)."""
+
+    bm: int  # output rows per block: 128 (8 warps) or 64 (4 warps)
+    bn: int  # output columns per block: cout rounded up to 32, at most 128
+    strips: int  # column strips (cout > 128 only)
+    slots: int  # kernel slots per block
+    nsplit: int  # blocks that share one row block's slots (grid z)
+    cin_p: int  # input channels rounded up to 32 (the kernel's step)
+    blocks: int
+
+
+def tiling(m_out: int, K: int, cin: int, cout: int, sms: int) -> Tiling:
+    """The kernel's launch shape for an (m_out, K, cin, cout) conv on a card
+    with ``sms`` SMs: 128-row blocks when that launches at least two blocks
+    per SM, else 64-row blocks; while that is still fewer, the slots split
+    across blocks (at most MAX_SLOTS slots per block either way)."""
+    bn = min(128, -(-cout // 32) * 32)
+    strips = -(-cout // bn)
+    target = 2 * sms
+    bm = 128 if -(-m_out // 128) * strips >= target else 64
+    base = -(-m_out // bm) * strips
+    nsplit = max(-(-K // MAX_SLOTS), min(K, -(-target // base)))
+    slots = -(-K // nsplit)
+    nsplit = -(-K // slots)
+    return Tiling(bm=bm, bn=bn, strips=strips, slots=slots, nsplit=nsplit,
+                  cin_p=-(-cin // 32) * 32, blocks=base * nsplit)
+
+
 def _library():
     """The kernel library, built and bound on first use."""
     global _lib
     if _lib is None:
         lib = _build.load(_SOURCE)
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.pbnet_onehot_conv.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P]
+        lib.pbnet_onehot_conv.argtypes = [P] * 9 + [I] * 13 + [P]
         lib.pbnet_onehot_conv.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
+def _sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def onehot_conv(feats, plan: OnehotPlan, weights, valid_out,
                 compute_dtype=torch.bfloat16):
     """See :func:`onehot_conv_plain`; CUDA tensors run the kernel, which
-    takes f32 features and weights and rounds both to bf16 itself."""
+    takes f32 features and weights and rounds both to bf16 itself (one pass
+    per call, into scratch)."""
     if feats.device.type == "cpu":
         return onehot_conv_plain(feats, plan, weights, valid_out, compute_dtype)
     if compute_dtype != torch.bfloat16:
@@ -188,8 +230,16 @@ def onehot_conv(feats, plan: OnehotPlan, weights, valid_out,
     check("valid_out", valid_out, torch.bool, (m_out,), dev)
     check("starts", plan.starts, torch.int32, (nt, K // plan.kz), dev)
     check("rel", plan.rel, torch.int32, (nt, tm, K), dev)
+    t = tiling(m_out, K, cin, cout, _sm_count(dev))
+    w_pitch = t.strips * t.bn
     out = torch.empty((m_out, cout), dtype=torch.float32, device=dev)
+    feats_bf = torch.empty((plan.m_in, t.cin_p), dtype=torch.bfloat16, device=dev)
+    w_bf = torch.empty((K, t.cin_p, w_pitch), dtype=torch.bfloat16, device=dev)
+    part = (torch.empty((t.nsplit, m_out, cout), dtype=torch.float32, device=dev)
+            if t.nsplit > 1 else out)
     _build.launch(LAUNCHES, "onehot_conv", _library().pbnet_onehot_conv,
                   ptr(feats), ptr(weights), ptr(plan.starts), ptr(plan.rel), ptr(valid_out),
-                  ptr(out), plan.m_in, cin, cout, K, plan.kz, tm, m_out, plan.span)
+                  ptr(out), ptr(feats_bf), ptr(w_bf), ptr(part), plan.m_in, cin, t.cin_p,
+                  cout, w_pitch, K, plan.kz, tm, m_out, plan.span, t.bm, t.bn, t.slots)
+    LAST_TILING["onehot_conv"] = t
     return out

@@ -5,7 +5,9 @@ marker; each test skips without one).
 The banded conv (B6) is held within 1e-4 of the plain version's largest
 output magnitude: both multiply the same bf16-rounded operands in f32, only
 the order of the sums differs (tensor cores against a full-f32 matmul,
-TF32 off).  Every other kernel must equal its plain version exactly.
+TF32 off); two launches on the same inputs must equal bit for bit (the slot
+split adds its partial tiles in a fixed order).  Every other kernel must
+equal its plain version exactly.
 
 This file imports neither JAX nor pbnet_tpu, so it runs on a machine that
 has only the port's dependencies:
@@ -147,8 +149,8 @@ def banded_map(rng, m_out, m_in, K, kz, jitter, present=0.7):
     return kmap
 
 
-# 320 rows in 64-row tiles: the last 128-row block is ragged; Cout 96: so is
-# the last 64-column block; the tight spans drop entries (rel == span slots)
+# 320 rows in 64-row plan tiles; the tight spans drop entries (rel == span
+# slots)
 @pytest.mark.parametrize("K,kz,cin,span", [(27, 3, 64, 192), (27, 3, 96, 48),
                                            (8, 2, 192, 256), (8, 2, 64, 32)])
 def test_onehot_conv_matches_plain(dev, K, kz, cin, span):
@@ -170,3 +172,100 @@ def test_onehot_conv_matches_plain(dev, K, kz, cin, span):
     assert torch.equal(got[~valid], torch.zeros_like(got[~valid]))
     with pytest.raises(ValueError):
         oc.onehot_conv(feats, plan, w, valid, torch.float32)
+
+
+def b6_check(feats, plan, w, valid):
+    """One B6 launch against the plain version (1e-4 of the largest plain
+    magnitude), exact zeros where valid_out is false, one counted launch,
+    and a second launch equal bit for bit."""
+    before = oc.LAUNCHES["onehot_conv"]
+    got = oc.onehot_conv(feats, plan, w, valid)
+    want = oc.onehot_conv_plain(feats, plan, w, valid)
+    again = oc.onehot_conv(feats, plan, w, valid)
+    torch.cuda.synchronize()
+    assert oc.LAUNCHES["onehot_conv"] == before + 2
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    assert torch.equal(got[~valid], torch.zeros_like(got[~valid]))
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    return got
+
+
+# sms: the SM count the wrapper plans for (None: the card's).  At these row
+# counts the card's count gives 64-row blocks with the slots split across
+# blocks; sms=1 gives 128-row blocks with no split, 16 a split in two.
+# Cout 45 and 200 take the odd-column and the column-strip edges, Cin 80 a
+# zero-padded channel step; span 48 drops entries (overflow > 0).
+@pytest.mark.parametrize("sms,m_out,K,kz,cin,cout,span", [
+    (None, 256, 27, 3, 64, 64, 192),      # one 256-row tile
+    (None, 1536, 8, 2, 64, 64, 512),      # local down L3's rows
+    (None, 1536, 27, 3, 128, 96, 192),
+    (None, 1536, 27, 3, 192, 128, 192),
+    (1, 1536, 27, 3, 128, 128, 192),
+    (1, 1536, 27, 3, 96, 96, 48),
+    (None, 1536, 27, 3, 64, 96, 48),
+    (16, 1536, 8, 2, 192, 64, 256),
+    (None, 512, 27, 3, 80, 200, 192),
+    (1, 256, 8, 2, 64, 45, 128),
+    (1, 320, 27, 3, 96, 96, 192),         # 128-row blocks, the last one ragged
+])
+def test_onehot_conv_tilings(dev, monkeypatch, sms, m_out, K, kz, cin, cout, span):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if sms is not None:
+        monkeypatch.setattr(oc, "_sm_count", lambda _: sms)
+    rng = np.random.RandomState(m_out + cin + cout + span)
+    m_in = max(m_out * 2 if K == 8 else m_out, span + 64)
+    km = banded_map(rng, m_out, m_in, K, kz, 60 if span >= 128 else 40)
+    km[:128, 4:10] = -1  # slots no row of the first 128-row tile uses
+    km[:, K - 1] = -1    # a slot no row uses at all
+    tm = 256 if m_out % 256 == 0 else 64
+    plan = oc.build_onehot_plan(torch.from_numpy(km).to(dev), kz, m_in, tm=tm, span=span)
+    if span < 64:
+        assert int(plan.overflow) > 0
+    feats = torch.from_numpy(rng.randn(m_in, cin).astype(np.float32)).to(dev)
+    w = torch.from_numpy((rng.randn(K, cin, cout) * 0.1).astype(np.float32)).to(dev)
+    valid = rng.rand(m_out) < 0.9
+    valid[64:192] = False  # an all-false 64-row tile (and half a 128-row one)
+    valid = torch.from_numpy(valid).to(dev)
+    t = oc.tiling(m_out, K, cin, cout, oc._sm_count(dev))
+    if sms == 1:
+        assert (t.bm, t.nsplit) == (128, 1)
+    elif sms == 16:
+        assert (t.bm, t.nsplit) == (64, 2)
+    else:
+        assert t.bm == 64 and t.nsplit > 1
+    got = b6_check(feats, plan, w, valid)
+    assert float(got.abs().max()) > 0
+
+
+def test_border_edge_rows(dev):
+    """B3 and B5 exact at the bench window W = 4096 (64 KB of staged pairs)
+    on all-ones words, all-zero rows, rows whose set columns all have
+    first = -1, and ties in first with different labels."""
+    rng = np.random.RandomState(4)
+    nchunks, chunk, W = 3, 96, 4096
+    nw = W // 32
+    b = rng.randint(0, 2**32, (2, nchunks, chunk, nw), dtype=np.uint64).astype(np.uint32)
+    b[:, :, :, ::3] = 0                         # empty words inside rows
+    b[:, :, :8] = 0xFFFFFFFF                    # all-ones rows
+    b[:, :, 8:16] = 0                           # empty rows
+    fw = rng.randint(0, 3, (2, nchunks, W)).astype(np.int32)  # few values: ties
+    lw = rng.randint(0, 1000, (2, nchunks, W)).astype(np.int32)
+    fw[:, :, :64] = -1                          # rows 16..23 set only these
+    b[:, :, 16:24] = 0
+    b[:, :, 16:24, :2] = rng.randint(1, 2**32, (2, nchunks, 8, 2), dtype=np.uint64)
+    fw[0, 1, 64:] = 2                           # one first value elsewhere: all ties
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    b1, b2 = t(b[0].view(np.int32)), t(b[1].view(np.int32))
+    args = (b1, b2, t(fw[0]), t(fw[1]), t(lw[0]), t(lw[1]))
+    best, root = wk.masked_window_border(*args)
+    want_best, want_root = wk.masked_window_border_plain(*args)
+    assert torch.equal(best, want_best) and torch.equal(root, want_root)
+    assert (best[:, 8:16] == -1).all() and (root[:, 8:16] == -1).all()
+    assert (best[:, 16:24] == -1).all() and (root[:, 16:24] >= 0).all()
+    assert (best[:, :8] == 2).all()
+    pick = wk.masked_window_match_pick(*args, best)
+    assert torch.equal(pick, wk.masked_window_match_pick_plain(*args, best))
+    assert torch.equal(pick, root)

@@ -155,6 +155,45 @@ def test_onehot_conv_plain_matches_jax(dtypes, K, kz, span):
         close(got, gather)
 
 
+# the bench's widest conv (Cin 192 -> Cout 128), and an m_out of one tile
+@pytest.mark.parametrize("M,tm,cin,cout", [(256, 128, 192, 128), (256, 256, 64, 96)])
+def test_onehot_conv_plain_bench_widths_match_jax(M, tm, cin, cout):
+    rng = np.random.RandomState(cin + tm)
+    km, feats, w, valid = conv_case(rng, 27, 3, cin, cout, 192, M=M)
+    jp = joc.build_onehot_plan(jnp.asarray(km), 3, 256, tm=tm, span=192)
+    tp_ = toc.build_onehot_plan(torch.from_numpy(km), 3, 256, tm=tm, span=192)
+    plans_equal(tp_, jp)
+    want = np.asarray(joc.onehot_conv(jnp.asarray(feats), jp, jnp.asarray(w),
+                                      jnp.asarray(valid), jnp.bfloat16))
+    t = torch.from_numpy
+    got = toc.onehot_conv(t(feats), tp_, t(w), t(valid), torch.bfloat16).numpy()
+    assert got.shape == (M, cout)
+    close(got, want)
+
+
+# (m_out, K, cin, cout) of the banded bench convs (synthetic.BANDED_SHAPES):
+# main and local k3 at L1/L2, up at L0/L1, down at L3
+BENCH_CONVS = [
+    (39_424, 27, 128, 96), (39_424, 27, 96, 96), (10_240, 27, 128, 128),
+    (10_240, 27, 192, 128), (10_240, 27, 64, 64), (92_416, 8, 96, 96),
+    (39_424, 8, 128, 96), (4_096, 8, 64, 64), (20_992, 27, 128, 96),
+    (20_992, 27, 96, 96), (5_888, 27, 128, 128), (5_888, 27, 192, 128),
+    (5_888, 27, 64, 64), (41_984, 8, 96, 96), (20_992, 8, 128, 96), (1_536, 8, 64, 64),
+]
+
+
+def test_tiling_fills_the_card():
+    """The CUDA kernel's launch shape at every bench conv on 132 SMs: all
+    output columns in one block, about two blocks per SM or more (rounding
+    the slots per block can leave a split a little short: main down L3's 8
+    slots split in 4 give 256 blocks), at most MAX_SLOTS slots per block."""
+    for m_out, K, cin, cout in BENCH_CONVS:
+        t = toc.tiling(m_out, K, cin, cout, sms=132)
+        assert t.strips == 1 and t.bn >= cout, (m_out, K, cin, cout)
+        assert t.blocks >= 1.9 * 132 or t.slots == 1, (m_out, K, cin, cout)
+        assert t.slots <= toc.MAX_SLOTS, (m_out, K, cin, cout)
+
+
 @pytest.mark.parametrize("cin", [64, 16])  # 16 < MIN_CIN: the gather path
 def test_gather_conv_plan_matches_jax(dtypes, cin):
     rng = np.random.RandomState(cin)

@@ -198,3 +198,35 @@ def test_border_is_reduce_max_then_match_pick(rng):
     best, root = wk.masked_window_border(b1, b2, fw1, fw2, lw1, lw2)
     assert torch.equal(best, wk.masked_window_reduce(b1, b2, fw1, fw2, minimize=False))
     assert torch.equal(root, wk.masked_window_match_pick(b1, b2, fw1, fw2, lw1, lw2, best))
+
+
+@pytest.mark.parametrize("case", ["all_ones", "first_minus1"])
+def test_masked_window_border_edge_rows_match_pallas(rng, interpret, case):
+    """The rows the one-pass CUDA design (a lexicographic max of (first,
+    label)) must get right, plain version against Pallas: all-ones words
+    (every column set, many ties in first), and rows whose set columns all
+    have first = -1 (best -1, root the max label among them)."""
+    b1, b2 = random_bits(rng)
+    nchunks, w = b1.shape[0], b1.shape[2] * 32
+    fw1, fw2 = (rng.randint(0, 3, (nchunks, w)).astype(np.int32) for _ in range(2))
+    lw1, lw2 = (rng.randint(0, 500, (nchunks, w)).astype(np.int32) for _ in range(2))
+    if case == "all_ones":
+        b1[:, :16] = 0xFFFFFFFF
+        b2[:, :16] = 0xFFFFFFFF
+        b1[:, 16:32] = 0xFFFFFFFF  # one window full, the other random
+    else:
+        fw1[:, :32] = -1
+        fw2[:, :32] = -1
+        for b in (b1, b2):
+            b[:, :16] = 0
+            b[:, :16, 0] = rng.randint(1, 2**32, (nchunks, 16), dtype=np.uint64)
+    best, root = pk.masked_window_border(*(jnp.asarray(a) for a in (b1, b2, fw1, fw2, lw1, lw2)))
+    t = torch.from_numpy
+    gb, gr = wk.masked_window_border(t(b1.view(np.int32)), t(b2.view(np.int32)),
+                                     t(fw1), t(fw2), t(lw1), t(lw2))
+    np.testing.assert_array_equal(gb.numpy(), np.asarray(best))
+    np.testing.assert_array_equal(gr.numpy(), np.asarray(root))
+    if case == "all_ones":
+        assert (gb.numpy()[:, :16] == 2).all()
+    else:
+        assert (gb.numpy()[:, :16] == -1).all() and (gr.numpy()[:, :16] >= 0).all()
