@@ -8,7 +8,8 @@ exits non-zero — no phase catches its own failure):
 
 1. build     nvcc-compile csrc/window_kernels.cu and csrc/onehot_conv.cu for
              sm_90a (one nvcc per source, all started together) and print
-             ptxas's report.
+             ptxas's report; read B1's and B2's hot loops from the SASS
+             (cuobjdump): instructions per pair test and per bit and row.
 2. kernels   one warm-up forward of the bench scene records the arguments
              of each clustering kernel's first call; at those bench shapes
              each kernel must equal its plain PyTorch version exactly (bits,
@@ -16,7 +17,12 @@ exits non-zero — no phase catches its own failure):
              are timed (kernel: median of 20 launches by CUDA events; plain:
              median of 3 calls) beside the kernel's bound (see ``bound``);
              window_1nn is timed again with every chunk needy, as trained
-             content makes it.  match_pick (B5, on no path) runs on the
+             content makes it.  B1's line adds the pairs the bound counts,
+             those of the full grid and those the kernel tests.  B2 runs
+             again in every propagation round of binary_cluster on the bench
+             scene's foreground points with 4 cm of noise on the offsets
+             (more rounds, as trained offsets make): each round exact, and
+             timed (reported, not gated).  match_pick (B5, on no path) runs on the
              border kernel's arguments with its ``best`` output as target:
              it must equal its plain version exactly and the border kernel's
              ``root``.  A warm-up forward in the banded configuration
@@ -116,6 +122,8 @@ PAIR_OPS = (9, 4)
 # then min/max (B2) or the (first-orig, label) max (B3)
 SET_BIT_OPS = {"masked_window_reduce": 4, "masked_window_border": 6,
                "masked_window_match_pick": 5}
+# rows per block of the B1 kernel (NP_ROWS in csrc/window_kernels.cu)
+B1_BLOCK_ROWS = 64
 # B6 against its plain version: the same bf16-rounded operands multiplied in
 # f32, only the order of the f32 sums differs
 B6_RTOL = 1e-4
@@ -265,6 +273,62 @@ def bound(name, args, outs):
             detail)
 
 
+def sass_hot_blocks(lib_path, kernels):
+    """The SASS of each kernel named in ``kernels`` (name fragments), read
+    with cuobjdump: {fragment: [(instructions, opcode counts)]} of the
+    largest straight-line block of each instantiation (its fully unrolled
+    inner loop).  Blocks end at labels and branches."""
+    import re
+    from collections import Counter
+
+    from pbnet_torch import _build
+
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    instr = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)")
+    found = {k: [] for k in kernels}
+    for func in re.split(r"\n\s*Function : ", sass)[1:]:
+        key = next((k for k in kernels if k in func.split()[0]), None)
+        if key is None:
+            continue
+        best, cur = Counter(), Counter()
+        for line in func.splitlines():
+            m = instr.search(line)
+            if m:
+                cur[m.group(1)] += 1
+            if (m is None and re.match(r"\s*\.L_x_\d+:", line)) or (
+                    m and m.group(1) in ("BRA", "EXIT", "RET", "BSYNC", "WARPSYNC")):
+                if sum(cur.values()) > sum(best.values()):
+                    best = cur
+                cur = Counter()
+        found[key].append((sum(best.values()), best))
+    return found
+
+
+def b1_pairs(args, block_rows=B1_BLOCK_ROWS):
+    """(pairs the bound counts, pairs of the full grid 2 * nchunks * chunk *
+    W, pairs the B1 kernel tests) of one neighbor_pack call.  The kernel
+    tests the rows of its ``block_rows``-row blocks that hold a valid row
+    against the 32 columns of every word that holds a valid column."""
+    import torch
+
+    rows_i, w1i, w2i = args[2], args[4], args[6]
+    nchunks, _, chunk = rows_i.shape
+    W = w1i.shape[2]
+    rv = rows_i[:, 1] > 0
+    cols = sum((wi[:, 1] > 0).sum(1) for wi in (w1i, w2i))
+    counted = int((rv.sum(1) * cols).sum())
+    nb = -(-chunk // block_rows)
+    v = torch.zeros(nchunks, nb * block_rows, dtype=torch.bool, device=rv.device)
+    v[:, :chunk] = rv
+    size = torch.tensor([min(block_rows, chunk - block_rows * b) for b in range(nb)],
+                        device=rv.device)
+    rows = (v.view(nchunks, nb, block_rows).any(2) * size).sum(1)
+    words = sum((wi[:, 1] > 0).view(nchunks, W // 32, 32).any(2).sum(1) for wi in (w1i, w2i))
+    return counted, 2 * nchunks * chunk * W, int((rows * words * 32).sum())
+
+
 def trace_requests(request, n):
     """Profile ``n`` requests: wall and device-busy ms per request, the
     device's idle share, and device time per request by kernel family."""
@@ -384,6 +448,20 @@ def main():
             if "Used" in line or "spill" in line or "error" in line.lower():
                 log(f"[build]   {line.strip()}")
     log(f"[build] done in {time.time() - t0:.1f} s")
+    # the hot loops of B1 and B2 as compiled: instructions per pair test
+    # (B1: 3 FMUL per pair) and per bit and row (B2: one min/max each)
+    hot = sass_hot_blocks(_build._target("window_kernels")[1],
+                          ("neighbor_pack_kernel", "masked_window_reduce_kernel"))
+    for key, blocks in hot.items():
+        for size, ops in blocks:
+            if key.startswith("neighbor"):
+                npair = ops["FMUL"] // 3
+                per = f"{npair} pair tests, {size / max(npair, 1):.2f} per pair"
+            else:
+                nred = ops["IMNMX"] + ops["VIMNMX"]
+                per = f"{nred} bit-rows, {size / max(nred, 1):.3f} per bit-row"
+            log(f"[sass] {key}: hot block {size} instructions ({per}); "
+                f"{dict(ops.most_common(10))}")
 
     def launches():
         return {**wk.LAUNCHES, **oc.LAUNCHES}
@@ -463,6 +541,10 @@ def main():
         shp = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
         log(f"[kernels] {name}: exact at {shp}; kernel {ms:.4f} ms, plain "
             f"{plain_ms:.3f} ms, bound {bms:.4f} ms ({by}; {detail})")
+        if name == "neighbor_pack":
+            counted, grid, tested = b1_pairs(args)
+            log(f"[kernels] {name}: pairs the bound counts {counted}, pairs of the full grid "
+                f"{grid}, pairs the kernel tests {tested} ({tested / counted:.4f} x counted)")
         rows[name] = dict(name=name, route="cuda", source=SOURCE[name],
                           replaces=TPU_KERNEL[name], max_abs_err=err, ms=ms,
                           plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None)
@@ -477,6 +559,52 @@ def main():
     bms, by, detail = bound("window_1nn", args, wk.window_1nn(*args))
     log(f"[kernels] window_1nn, every chunk needy: exact; kernel {ms:.4f} ms, plain "
         f"{plain_ms:.3f} ms, bound {bms:.4f} ms ({by}; {detail})")
+
+    # B2 on content that needs several propagation rounds: binary_cluster on
+    # the bench scene's foreground points (compacted to the fg cap, as the
+    # model does) with 4 cm of noise on the oracle offsets (as phase 3);
+    # every round's call must equal the plain version and is timed
+    xyz_b, sem_b, ins_b, cen_b = synthetic.make_scene(np.random.RandomState(0))
+    _, offs_b, _ = synthetic.oracle_stage1(xyz_b, sem_b, ins_b, cen_b, xyz_b.shape[0])
+    nf = shapes["gather"].fg_point_cap
+    sel = np.argsort(sem_b < 2, kind="stable")[:nf]
+    noise = np.random.RandomState(2).randn(nf, 3).astype(np.float32) * 0.04
+    nargs = ((xyz_b + offs_b)[sel] + noise, xyz_b[sel], sem_b[sel], np.zeros(nf, np.int32),
+             sem_b[sel] >= 2)
+    reduce_calls = []
+
+    def reduce_recorder(*a, **kw):
+        reduce_calls.append((a, kw))
+        return originals["masked_window_reduce"](*a, **kw)
+
+    wk.masked_window_reduce = reduce_recorder
+    try:
+        m, sh = models["gather"], shapes["gather"]
+        noisy = cl.binary_cluster(*(torch.from_numpy(a).cuda() for a in nargs),
+                                  count_mean=m.count_mean, radius=m.radius, min_pts=m.min_pts,
+                                  cluster_cap=sh.cluster_cap, band=sh.cluster_band,
+                                  nn_exact_cap=sh.nn_exact_cap)
+        torch.cuda.synchronize()
+    finally:
+        wk.masked_window_reduce = originals["masked_window_reduce"]
+    round_ms = []
+    for a, kw in reduce_calls:
+        max_abs_err((wk.masked_window_reduce(*a, **kw),),
+                    (wk.masked_window_reduce_plain(*a, **kw),))
+        round_ms.append(time_kernel(lambda: wk.masked_window_reduce(*a, **kw)))
+    med = statistics.median(round_ms)
+    a0 = reduce_calls[0][0]
+    nbits = set_bits(a0[0], a0[1])
+    bms, by, _ = bound("masked_window_reduce", a0, (wk.masked_window_reduce(*a0),))
+    rows["masked_window_reduce"]["noisy"] = dict(rounds=len(reduce_calls), ms_median=med,
+                                                 ms_rounds=med * len(reduce_calls),
+                                                 set_bits=nbits, bound_ms=bms)
+    log(f"[kernels] masked_window_reduce on noisy content ({int(nargs[4].sum())} fg points, "
+        f"4 cm offset noise, {int(noisy.num_clusters)} clusters): {len(reduce_calls)} rounds, "
+        f"each exact; median {med:.4f} ms per launch, rounds x median "
+        f"{med * len(reduce_calls):.4f} ms; {nbits} set bits; bound {bms:.4f} ms per launch "
+        f"({by}); per round {[round(t, 4) for t in round_ms]}")
+    del reduce_calls
 
     # B5 on the border kernel's arguments, with its ``best`` as the target:
     # there match_pick must give the border kernel's ``root``

@@ -269,3 +269,107 @@ def test_border_edge_rows(dev):
     pick = wk.masked_window_match_pick(*args, best)
     assert torch.equal(pick, wk.masked_window_match_pick_plain(*args, best))
     assert torch.equal(pick, root)
+
+
+def np_tiles(rng, nchunks, chunk, W):
+    """numpy rows and windows on a 1/8 grid, as :func:`tiles` makes them."""
+    rows_f = (rng.randint(0, 6, (nchunks, 3, chunk)) / 8.0).astype(np.float32)
+    rows_i = np.stack([rng.randint(0, 3, (nchunks, chunk)), rng.rand(nchunks, chunk) < 0.9,
+                       np.arange(nchunks * chunk).reshape(nchunks, chunk)], 1).astype(np.int32)
+    wins = []
+    for _ in range(2):
+        wins.append((rng.randint(0, 6, (nchunks, 3, W)) / 8.0).astype(np.float32))
+        wins.append(np.stack([rng.randint(0, 3, (nchunks, W)), rng.rand(nchunks, W) < 0.8,
+                              rng.randint(0, nchunks * chunk, (nchunks, W))],
+                             1).astype(np.int32))
+    return rows_f, rows_i, wins
+
+
+# B1 skips words with no valid column and blocks with no valid row, and
+# folds validity into the distance test (NaN x).  chunk 300 leaves a ragged
+# last 128-row block, W 2080 a partial 1024-column tile; (1024, 4096) is the
+# bench tile.  Window-2 prefixes are invalid, as ops/cluster.py's `fresh2`
+# makes them.
+@pytest.mark.parametrize("case,nchunks,chunk,W,prefixes", [
+    ("w2_prefix", 6, 300, 2080, (0, 32, 1024, 1056, 2048, 2080)),
+    ("w2_invalid", 3, 300, 2080, (2080,) * 3),
+    ("rows_invalid", 3, 300, 2080, (0, 0, 0)),
+    ("invalid_on_row", 3, 300, 2080, (0, 0, 0)),
+    ("bench_tile", 2, 1024, 4096, (3040, 4064)),
+])
+def test_neighbor_pack_edges(dev, case, nchunks, chunk, W, prefixes):
+    rng = np.random.RandomState(W + len(case))
+    rows_f, rows_i, wins = np_tiles(rng, nchunks, chunk, W)
+    for c, p in enumerate(prefixes):
+        wins[3][c, 1, :p] = 0
+    hits = []
+    if case == "rows_invalid":
+        rows_i[0, 1] = 0          # a chunk with no valid row
+        rows_i[1, 1, 128:256] = 0  # one whole 128-row block
+    elif case == "invalid_on_row":
+        # invalid columns on a valid row's coords, in its group: bit stays 0
+        for c in range(nchunks):
+            for wf, wi in (wins[0:2], wins[2:4]):
+                for j in rng.choice(W, 16, replace=False):
+                    r = rng.choice(np.nonzero(rows_i[c, 1])[0])
+                    wf[c, :, j] = rows_f[c, :, r]
+                    wi[c, 0, j] = rows_i[c, 0, r]
+                    wi[c, 1, j] = 0
+                    wi[c, 2, j] = -7
+                    hits.append((wi is wins[3], c, r, j))
+    elif case == "bench_tile":
+        rows_i[-1, 1, 704:] = 0   # the bench's padding rows
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    args = (t(rows_f), t(rows_i), *(t(w) for w in wins))
+    before = wk.LAUNCHES["neighbor_pack"]
+    got = wk.neighbor_pack(0.140625, *args)
+    want = wk.neighbor_pack_plain(0.140625, *args)
+    assert wk.LAUNCHES["neighbor_pack"] == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(got[2].sum()) > 0
+    m = [wk.unpack_bits(b).cpu().numpy() for b in got[:2]]
+    for c, p in enumerate(prefixes):
+        assert not m[1][c, :, :p].any()
+    if case == "rows_invalid":
+        assert not m[0][0].any() and not m[0][1, 128:256].any()
+        assert int(got[2][0].abs().sum()) == 0
+    for win2, c, r, j in hits:
+        assert not m[win2][c, r, j]
+
+
+# B2 (both modes) at the bench window W = 4096 with a ragged last block:
+# all-ones words and all-zero rows; values at the identities INT32_MAX and
+# -1 (rows 40..59 set only such columns); a window 2 of zero words
+@pytest.mark.parametrize("minimize", [True, False])
+@pytest.mark.parametrize("case", ["ones_zero", "identity", "w2_zero"])
+def test_masked_window_reduce_edges(dev, case, minimize):
+    nchunks, chunk, W = 3, 300, 4096
+    rng = np.random.RandomState(5)
+    b = rng.randint(0, 2**32, (2, nchunks, chunk, W // 32), dtype=np.uint64).astype(np.uint32)
+    b[rng.rand(*b.shape) < 0.5] = 0
+    b[:, :, :, ::3] = 0
+    v = rng.randint(-1, 10_000, (2, nchunks, W)).astype(np.int32)
+    if case == "ones_zero":
+        b[:, :, :16] = 0xFFFFFFFF
+        b[:, :, 16:40] = 0
+    elif case == "identity":
+        low = (np.arange(W) % 32) < 8  # bit positions 0..7 of every word
+        v[:, :, low & (np.arange(W) % 2 == 0)] = 2**31 - 1
+        v[:, :, low & (np.arange(W) % 2 == 1)] = -1
+        b[:, :, 40:60] &= np.uint32(0xFF)
+    else:
+        b[1] = 0
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    args = (t(b[0].view(np.int32)), t(b[1].view(np.int32)), t(v[0]), t(v[1]))
+    before = wk.LAUNCHES["masked_window_reduce"]
+    got = wk.masked_window_reduce(*args, minimize)
+    assert torch.equal(got, wk.masked_window_reduce_plain(*args, minimize))
+    assert wk.LAUNCHES["masked_window_reduce"] == before + 1
+    ident = 2**31 - 1 if minimize else -1
+    if case == "ones_zero":
+        assert (got[:, 16:40] == ident).all()
+        full = v.min((0, 2)) if minimize else v.max((0, 2))  # every column set
+        assert (got[:, :16] == t(full)[:, None]).all()
+    elif case == "identity":
+        assert ((got[:, 40:60] == -1) | (got[:, 40:60] == 2**31 - 1)).all()

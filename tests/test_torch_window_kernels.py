@@ -73,9 +73,45 @@ def rows_and_windows(rng, nchunks=3, chunk=64, W=128, groups=3):
     return rows_f, rows_i, wins
 
 
-@pytest.mark.parametrize("r2", [0.0625, 0.140625])
-def test_neighbor_pack_matches_pallas(rng, interpret, r2):
-    rows_f, rows_i, ((w1f, w1i), (w2f, w2i)) = rows_and_windows(rng)
+def invalid_on_rows(rng, rows_f, rows_i, wf, wi, n=6):
+    """Make n columns per chunk invalid copies of a valid row: its coords
+    and group, another index.  Returns the (chunk, row, column) triples."""
+    hits = []
+    for c in range(rows_f.shape[0]):
+        for j in rng.choice(wf.shape[2], n, replace=False):
+            r = rng.choice(np.nonzero(rows_i[c, 1])[0])
+            wf[c, :, j] = rows_f[c, :, r]
+            wi[c, 0, j] = rows_i[c, 0, r]
+            wi[c, 1, j] = 0
+            wi[c, 2, j] = -7
+            hits.append((c, r, j))
+    return hits
+
+
+# edge cases the CUDA design relies on (an invalid column or row never sets
+# a bit, whatever its coordinates):
+#   w2_prefix       window 2 valid only on a suffix, as ops/cluster.py's
+#                   `fresh2` makes it (prefix lengths 0, 32, 96 and W)
+#   invalid_on_row  invalid columns on a valid row's own coords and group
+#   w2_invalid      an all-invalid window 2
+@pytest.mark.parametrize("r2,case", [
+    pytest.param(0.0625, None, id="0.0625"),
+    pytest.param(0.140625, None, id="0.140625"),
+    pytest.param(0.140625, "w2_prefix", id="w2_prefix"),
+    pytest.param(0.140625, "invalid_on_row", id="invalid_on_row"),
+    pytest.param(0.140625, "w2_invalid", id="w2_invalid"),
+])
+def test_neighbor_pack_matches_pallas(rng, interpret, r2, case):
+    rows_f, rows_i, ((w1f, w1i), (w2f, w2i)) = rows_and_windows(rng, nchunks=4)
+    hits = []
+    if case == "w2_prefix":
+        for c, p in enumerate((0, 32, 96, w2i.shape[2])):
+            w2i[c, 1, :p] = 0
+    elif case == "invalid_on_row":
+        hits = invalid_on_rows(rng, rows_f, rows_i, w1f, w1i)
+        hits2 = invalid_on_rows(rng, rows_f, rows_i, w2f, w2i)
+    elif case == "w2_invalid":
+        w2i[:, 1] = 0
     b1, b2, dens = pk.neighbor_pack(
         jnp.float32(r2), jnp.asarray(rows_f), jnp.asarray(rows_i),
         jnp.asarray(lane(w1f)), jnp.asarray(lane(w1i)),
@@ -86,6 +122,15 @@ def test_neighbor_pack_matches_pallas(rng, interpret, r2):
     np.testing.assert_array_equal(u32(g2), np.asarray(b2))
     np.testing.assert_array_equal(gd.numpy(), np.asarray(dens))
     assert gd.sum() > 0 and (gd == 0).any()  # both full and empty rows
+    if case in ("w2_prefix", "w2_invalid"):
+        m2 = wk.unpack_bits(g2).numpy()
+        assert not m2[3].any() and (m2.any() == (case == "w2_prefix"))
+        if case == "w2_prefix":
+            assert not m2[1, :, :32].any() and not m2[2, :, :96].any()
+    if case == "invalid_on_row":
+        for g, hs in ((g1, hits), (g2, hits2)):
+            m = wk.unpack_bits(g).numpy()
+            assert not any(m[c, r, j] for c, r, j in hs)
 
 
 def random_bits(rng, nchunks=3, chunk=64, nw=4):
@@ -97,12 +142,31 @@ def random_bits(rng, nchunks=3, chunk=64, nw=4):
     return b[0], b[1]
 
 
-@pytest.mark.parametrize("minimize", [True, False])
-def test_masked_window_reduce_matches_pallas(rng, interpret, minimize):
+# all_ones: all-ones words (every column set) in a third of the rows;
+# identity: values at the identities INT32_MAX and -1 (rows 10..19 set only
+# such columns, so their result is the identity or the other extreme)
+@pytest.mark.parametrize("minimize,case", [
+    pytest.param(True, None, id="True"),
+    pytest.param(False, None, id="False"),
+    pytest.param(True, "all_ones", id="all_ones-min"),
+    pytest.param(False, "all_ones", id="all_ones-max"),
+    pytest.param(True, "identity", id="identity-min"),
+    pytest.param(False, "identity", id="identity-max"),
+])
+def test_masked_window_reduce_matches_pallas(rng, interpret, minimize, case):
     b1, b2 = random_bits(rng)
     w = b1.shape[2] * 32
     vw1 = rng.randint(-1, 10_000, (b1.shape[0], w)).astype(np.int32)
     vw2 = rng.randint(-1, 10_000, (b1.shape[0], w)).astype(np.int32)
+    if case == "all_ones":
+        b1[:, ::3] = 0xFFFFFFFF
+        b2[:, 1::3] = 0xFFFFFFFF
+    elif case == "identity":
+        for vw in (vw1, vw2):
+            vw[:, ::4] = 2**31 - 1
+            vw[:, 1::4] = -1
+        for b in (b1, b2):  # set only columns 32w + {0, 1, 4, 5}
+            b[:, 10:20] &= np.uint32(0x33)
     want = pk.masked_window_reduce(jnp.asarray(b1), jnp.asarray(b2), jnp.asarray(vw1),
                                    jnp.asarray(vw2), minimize=minimize)
     t = torch.from_numpy
