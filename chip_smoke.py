@@ -65,6 +65,42 @@ exits non-zero — no phase catches its own failure):
              wall and device-busy ms per request, the device's idle share,
              device time by kernel family and the top kernels by device
              time.
+8. train-reference
+             one full-phase train step (stage 2 driven by the oracle, as in
+             ``oracle_train_forward``) at full width on two copies of the
+             tiny scene (4 instances), on the card and on the CPU with the
+             same weights, f32 conv operands and SGD: cluster ids equal,
+             every loss term within rtol 1e-4, every BN running statistic
+             within 1e-3 of its tensor's largest magnitude; gradients and
+             SGD updates within ``REF_TENSOR_TOL`` of each tensor's scale
+             and ``REF_MODEL_TOL`` in relative L2 over the model (why: at
+             ``REF_TENSOR_TOL``), with the share within 1e-3 printed.  Then
+             the conv backward alone at the bench shapes (a k3, a down and
+             an up map of the bench topology): the card's transposed-map
+             backward against the CPU's plain autograd, dx and dW within
+             1e-3 of their largest magnitude, f32 and bf16 operands.
+9. train-main
+             training steps on the bench scene at full width, Adam at lr
+             1e-3, seeded weights: the backbone phase through
+             ``make_train_step`` (what epochs up to ``cluster_epoch`` run)
+             and the full phase oracle-driven through
+             ``train_step.apply_gradients``; 1 warm-up and 5 timed steps
+             each, in turns.  Gates: finite losses; in the full phase
+             clusters > 0, proposals > 0, every overflow counter 0, mask,
+             dice and score losses > 0 and each of B1-B4 launched within
+             every step; a finite non-zero gradient norm in every module
+             the phase trains (all three UNets and every head in the full
+             phase); parameters changed; a later loss below the first.  No
+             banded conv runs under grad.  Median ms/step (CUDA-synchronised
+             wall time) and peak device memory per phase.
+10. train-engine
+             ``engine.train`` with no device argument (CUDA by default) on
+             the tiny synthetic dataset for 2 iterations: a checkpoint and
+             ``scalars.jsonl``; a second call resumes at the next epoch.
+11. train trace
+             one profiled step of each training phase: device-busy ms, the
+             idle share and device time by family, with the backward's
+             gathers and GEMMs as families of their own.
 
 TF32 is switched off for matmuls and cuDNN: the port's f32 GEMMs run in full
 f32, so the CPU comparisons hold at the stated tolerances.
@@ -76,16 +112,19 @@ kernel's launches over the main phase's requests of the path it serves
 path.  B6's ``ms``,
 ``plain_ms``, ``bound_ms`` and ``library_ms`` are per banded request: each
 shape's time times its launches in one request, summed (``shapes`` lists
-them).  The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
+them).  ``launches_by_path["train"]`` counts B1-B4 over the 5 timed
+full-phase train steps.  The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or outside a checkout of the repository, the script fails and
 prints no result.
 """
 
+import dataclasses
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 # the clustering kernels (B1-B4), captured from the gather path
@@ -147,9 +186,32 @@ FAMILIES = (
     ("copy/cat/fill", ("copy", "Copy", "cat", "Cat", "fill", "Fill", "memcpy", "Memcpy",
                        "memset", "Memset")),
     ("elementwise", ("elementwise", "Elementwise", "vectorized")),
+    # the optimizer's and the global norms' multi-tensor kernels (training)
+    ("multi-tensor (optimizer, norms)", ("multi_tensor_apply",)),
 )
 N_REQUESTS = 3
 TRACE_REQUESTS = 2
+TRAIN_STEPS = 5  # timed steps per training phase, after one warm-up
+# Train reference at full width: the gradient of a 34-layer step moves by up
+# to 10% of a tensor's largest magnitude (and 2-4e-3 in relative L2 over
+# the model) when only the order of the f32 sums changes (the CPU step with
+# 1 or 3 threads against 8; 21% under 1e-7 relative noise on the input), as
+# ReLU and threshold decisions flip; so each tensor is held to half its
+# scale (a wrong backward errs by about its whole scale) and the model's
+# gradient to 2e-2 in relative L2.  The
+# backward's arithmetic is held to 1e-3 per tensor on single convs at the
+# bench shapes (``conv_backward_check``).
+REF_TENSOR_TOL = 0.5
+REF_MODEL_TOL = 2e-2
+# the modules each training phase must reach with a non-zero gradient
+TRAIN_MODULES = {
+    "backbone": ("MEUnet", "linear_sem", "linear_offset"),
+    "full": ("MEUnet", "D_Unet", "score_Unet", "linear_sem", "linear_offset", "linear_binary",
+             "linear_IOU_feat", "linear_IOU"),
+}
+# stage-1 outputs the losses read, from the model's own backbone
+STAGE1_KEYS = ("sem_pred_p", "sem_pred_score_p", "offset_pred_p", "point_ok", "overflow_vox",
+               "overflow_grid", "overflow_band")
 
 
 def log(msg):
@@ -329,9 +391,25 @@ def b1_pairs(args, block_rows=B1_BLOCK_ROWS):
     return counted, 2 * nchunks * chunk * W, int((rows * words * 32).sum())
 
 
-def trace_requests(request, n):
+def family(name):
+    return next((f for f, keys in FAMILIES if any(k in name for k in keys)), "other")
+
+
+def in_backward(event):
+    """Whether a CPU op ran inside the autograd engine's backward."""
+    while event is not None:
+        if event.name.startswith("autograd::engine::evaluate_function"):
+            return True
+        event = event.cpu_parent
+    return False
+
+
+def trace_requests(request, n, tag="trace", split_backward=False):
     """Profile ``n`` requests: wall and device-busy ms per request, the
-    device's idle share, and device time per request by kernel family."""
+    device's idle share, and device time per request by kernel family.
+    With ``split_backward`` the gathers and GEMMs that the backward launched
+    (kernels of CPU ops under the autograd engine) are families of their
+    own."""
     from collections import defaultdict
 
     import torch
@@ -344,24 +422,44 @@ def trace_requests(request, n):
             torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
     # device activity: Kineto lists it as CUDA-type events, or (older
-    # profilers) as the ``kernels`` of the CPU ops that launched it
+    # profilers) as the ``kernels`` of the CPU ops that launched it.  A
+    # range annotated on the device's track (``Optimizer.step``) spans
+    # kernels counted on their own: it is left out.
     events = prof.events()
     dev_events = [(e.name, e.time_range.elapsed_us()) for e in events
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
+    linked = [(k.name, k.duration, e) for e in events
+              if e.device_type == torch.autograd.DeviceType.CPU for k in e.kernels]
     if not dev_events:
-        dev_events = [(k.name, k.duration) for e in events for k in e.kernels]
+        dev_events = [(name, us) for name, us, _ in linked]
     if not dev_events:
         raise RuntimeError("the profiler recorded no device activity")
     by_family = defaultdict(float)
     for name, us in dev_events:
-        fam = next((f for f, keys in FAMILIES if any(k in name for k in keys)), "other")
-        by_family[fam] += us
+        by_family[family(name)] += us
     busy_us = sum(by_family.values())
     busy_ms = busy_us / 1e3 / n
-    log(f"[trace] wall {wall_ms:.3f} ms/request, device busy {busy_ms:.3f} ms/request, "
+    if split_backward:
+        # the backward's kernels, found through the CPU op that launched
+        # each (the package's own CUDA kernels go through ctypes and have
+        # none: they stay in their families)
+        bwd_us = 0.0
+        for name, us, ev in linked:
+            if in_backward(ev):
+                bwd_us += us
+                fam = family(name)
+                if fam in ("gather/index", "gemm"):
+                    by_family[fam] -= us
+                    by_family["backward " + {"gather/index": "gathers",
+                                             "gemm": "GEMMs"}[fam]] += us
+        log(f"[{tag}] backward: {bwd_us / 1e3 / n:.3f} ms/step ({bwd_us / busy_us:.1%} of "
+            f"device time; {sum(us for _, us, _ in linked) / busy_us:.1%} of device time "
+            f"linked to a CPU op)")
+    log(f"[{tag}] wall {wall_ms:.3f} ms/request, device busy {busy_ms:.3f} ms/request, "
         f"idle share {1 - busy_ms / wall_ms:.3f} ({n} requests, profiler on)")
     for fam, us in sorted(by_family.items(), key=lambda kv: -kv[1]):
-        log(f"[trace]   {fam:20s} {us / 1e3 / n:9.3f} ms/request "
+        log(f"[{tag}]   {fam:20s} {us / 1e3 / n:9.3f} ms/request "
             f"({us / busy_us:6.1%} of device time)")
     log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15))
 
@@ -412,6 +510,58 @@ def oracle_bb_tiny(batch, ok, feat32):
     soft = torch.nn.functional.one_hot(sem.long(), 20).float() * 0.9 + 0.005
     return {"point_feat_p": feat32, "sem_soft_p": soft, "offset_pred_p": offs,
             "sem_pred_p": torch.where(ok, sem, -1).to(torch.int32), "point_ok": ok}
+
+
+def train_ref_shapes():
+    """The train reference's caps: two copies of the tiny scene (4
+    instances, so the IoU head's train-mode BN normalises over 4 proposals;
+    over 2 its input gradient is rounding noise on any device), at every
+    level of the full-width UNets without overflow."""
+    from pbnet_torch import synthetic
+
+    caps = (1024,) * 5
+    return dataclasses.replace(synthetic.GRAFT_SHAPES, point_cap=2048, voxel_caps=caps,
+                               local_point_cap=2048, local_voxel_caps=caps,
+                               score_voxel_caps=caps, cluster_band=1024)
+
+
+def oracle_train_forward(model, batch, sem, offs):
+    """The full-phase forward with stage 2 driven by the oracle semantics
+    and offsets (random weights make no clusters): the model's own stage-1
+    outputs feed the losses, its per-point features and softmax feed stages
+    2-3, so the gradient reaches the backbone through them."""
+    import torch
+
+    bb = model.backbone(batch)
+    bb2 = dict(bb, sem_pred_p=torch.where(bb["point_ok"], sem, -1), offset_pred_p=offs)
+    ret = {k: bb[k] for k in STAGE1_KEYS}
+    ret.update(model.instance_stage(batch, bb2, True))
+    return ret
+
+
+def full_step(model, opt, cfg, batch, sem, offs, lr):
+    """One oracle-driven full-phase train step: the package's forward,
+    ``losses.model_fn``, backward and ``train_step.apply_gradients``.
+    Returns (aux, forward outputs)."""
+    from pbnet_torch.models import losses
+    from pbnet_torch.parallel import train_step
+
+    model.train()
+    opt.zero_grad(set_to_none=True)
+    ret = oracle_train_forward(model, batch, sem, offs)
+    loss, aux = losses.model_fn(ret, batch, cfg, True)
+    loss.backward()
+    gn, pn = train_step.apply_gradients(model, opt, cfg.fix_module, lr)
+    aux = {k: v.detach() for k, v in aux.items()}
+    aux.update(grad_norm=gn, param_norm=pn)
+    return aux, ret
+
+
+def module_grad_norms(model, names):
+    from pbnet_torch.parallel import train_step
+
+    return {n: float(train_step.global_norm(p.grad for p in getattr(model, n).parameters()
+                                            if p.grad is not None)) for n in names}
 
 
 def main():
@@ -541,6 +691,12 @@ def main():
         shp = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
         log(f"[kernels] {name}: exact at {shp}; kernel {ms:.4f} ms, plain "
             f"{plain_ms:.3f} ms, bound {bms:.4f} ms ({by}; {detail})")
+        if name == "window_1nn":
+            # the main path's B4 launches skip every chunk: set an empty
+            # launch beside them, timed the same way
+            empty_ms = time_kernel(lambda: torch.cuda._sleep(0))
+            log(f"[kernels] {name}: an empty launch (torch.cuda._sleep(0)) takes "
+                f"{empty_ms:.4f} ms by the same timing; B4 on the main path {ms:.4f} ms")
         if name == "neighbor_pack":
             counted, grid, tested = b1_pairs(args)
             log(f"[kernels] {name}: pairs the bound counts {counted}, pairs of the full grid "
@@ -548,6 +704,7 @@ def main():
         rows[name] = dict(name=name, route="cuda", source=SOURCE[name],
                           replaces=TPU_KERNEL[name], max_abs_err=err, ms=ms,
                           plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None)
+    rows["window_1nn"]["empty_launch_ms"] = empty_ms
     # oracle content routes almost no rows to the 1-NN pass, so the captured
     # call mostly skips; time the same tiles with every chunk needy as well
     # (trained offsets leave needy rows in many chunks)
@@ -855,6 +1012,13 @@ def main():
     for path in PATHS:
         log(f"[trace] {path} path:")
         trace_requests(lambda: request(path), TRACE_REQUESTS)
+    models.clear()
+    del batch, last
+    torch.cuda.empty_cache()
+
+    train_launches = train_phases(card, reset_launches, launches)
+    for k in KERNELS:
+        rows[k]["launches_by_path"]["train"] = train_launches[k]
     log(f"[done] {time.time() - t_start:.1f} s")
 
     print(card, flush=True)
@@ -863,6 +1027,249 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def conv_backward_check():
+    """The gather conv's backward alone on maps of the bench topology (a k3
+    map at L1, the L0->L1 down map and the L1->L0 up map): the card's
+    transposed-map backward against the CPU's plain autograd (a scatter-add)
+    with f32 operands, and against the same backward on the CPU with bf16
+    operands (the plain autograd rounds dx to bf16 where this backward
+    rounds dy); y, dx and dW within 1e-3 of their largest magnitude."""
+    import numpy as np
+    import torch
+    from pbnet_torch import synthetic
+    from pbnet_torch.core import topology as tp
+    from pbnet_torch.models.pbnet import make_level0
+    from pbnet_torch.nn import sparse_ops
+
+    t0 = time.time()
+    batch, _, _ = synthetic.bench_request("cuda")
+    level0, _ = make_level0(batch["vox_coords"], batch["vox_feats"], batch["vox_valid"])
+    topo = tp.build_unet_topology(level0, list(synthetic.BENCH_SHAPES.voxel_caps))
+    valid = [lv.valid for lv in topo.levels]
+    cases = (("k3 L1 64->64", topo.k3_maps[1], topo.k3_maps[1].flip(1), 1, 1, 64, 64),
+             ("down L0->L1 32->32", topo.down_maps[0], topo.up_maps[0], 0, 1, 32, 32),
+             ("up L1->L0 64->96", topo.up_maps[0], topo.down_maps[0], 1, 0, 64, 96))
+    rng = np.random.RandomState(3)
+    old = sparse_ops.COMPUTE_DTYPE
+    try:
+        for name, km, kb, lin, lout, cin, cout in cases:
+            m_in, k = valid[lin].shape[0], km.shape[1]
+            feats = rng.randn(m_in, cin).astype(np.float32) * valid[lin].cpu().numpy()[:, None]
+            w = (rng.randn(k, cin, cout) * 0.1).astype(np.float32)
+            dy = rng.randn(km.shape[0], cout).astype(np.float32)
+            errs = {}
+            for dtype in (torch.float32, torch.bfloat16):
+                sparse_ops.COMPUTE_DTYPE = dtype
+                outs = []
+                for dev, bwd in (("cuda", kb), ("cpu", None if dtype == torch.float32 else kb)):
+                    f = torch.from_numpy(feats).to(dev).requires_grad_(True)
+                    ww = torch.from_numpy(w).to(dev).requires_grad_(True)
+                    y = sparse_ops.gather_conv(f, km.to(dev), ww, valid[lout].to(dev),
+                                               kmap_bwd=None if bwd is None else bwd.to(dev))
+                    y.backward(torch.from_numpy(dy).to(dev))
+                    outs.append((y.detach().cpu(), f.grad.cpu(), ww.grad.cpu()))
+                errs[str(dtype).split(".")[-1]] = [
+                    close_err(g, c, 1e-3) / float(c.abs().max()) for g, c in zip(*outs)]
+            log(f"[train-reference] conv backward {name} ({km.shape[0]} x {k} map): card "
+                f"(transposed map) vs CPU, relative max error of y, dx, dW {errs}")
+    finally:
+        sparse_ops.COMPUTE_DTYPE = old
+    log(f"[train-reference] conv backward checks: {time.time() - t0:.1f} s")
+
+
+def train_phases(card, reset_launches, launches):
+    """Phases 8-11 (module docstring).  Returns B1-B4's launches over the
+    timed full-phase steps."""
+    import numpy as np
+    import torch
+    from pbnet_torch import engine, synthetic
+    from pbnet_torch.config import Config
+    from pbnet_torch.models.pbnet import PBNet, batch_to_device
+    from pbnet_torch.nn import sparse_ops
+    from pbnet_torch.parallel import train_step
+
+    # ---- 8. train-reference: one full-phase step, card vs CPU ----
+    t0 = time.time()
+    ref_sh = train_ref_shapes()
+    tb = synthetic.synthetic_batch(ref_sh, np.random.RandomState(0), n_copies=2)
+    sem = np.clip(tb["sem_label"], 0, 19).astype(np.int32)
+    offs = np.where((tb["ins_label"] != -100)[:, None],
+                    tb["inst_info"][:, 0:3] - tb["xyz"], 0.0).astype(np.float32)
+    cfg = Config(shapes=ref_sh, optimizer="SGD", lr=0.05, momentum=0.9, weight_decay=1e-4)
+    old_dtype = sparse_ops.COMPUTE_DTYPE
+    sparse_ops.COMPUTE_DTYPE = torch.float32
+    try:
+        m_g = PBNet(ref_sh, seed=1, device="cuda")
+        state = {k: v.detach().cpu().clone() for k, v in m_g.state_dict().items()}
+        runs = {}
+        for run, dev in (("card", "cuda"), ("cpu", "cpu")):
+            m = m_g if run == "card" else PBNet(ref_sh, device="cpu")
+            if run == "cpu":
+                m.load_state_dict(state)
+            b = batch_to_device(tb, dev)
+            aux, ret = full_step(m, train_step.make_optimizer(m, cfg), cfg, b,
+                                 torch.from_numpy(sem).to(dev), torch.from_numpy(offs).to(dev),
+                                 cfg.lr)
+            runs[run] = (m, aux, ret)
+    finally:
+        sparse_ops.COMPUTE_DTYPE = old_dtype
+    (m_g, aux_g, ret_g), (m_c, aux_c, ret_c) = runs["card"], runs["cpu"]
+    if not torch.equal(ret_g["cluster"].cluster_id.cpu(), ret_c["cluster"].cluster_id):
+        raise AssertionError("train reference: cluster ids differ between card and CPU")
+    if int(ret_c["num_final_proposals"]) < 4:
+        raise AssertionError("train reference: fewer than 4 proposals")
+    over = {k: float(v) for k, v in aux_c.items() if k.startswith("overflow") and v}
+    if over:
+        raise AssertionError(f"train reference: overflow {over}")
+    for k, v in aux_c.items():
+        if not abs(float(aux_g[k]) - float(v)) <= 1e-4 * abs(float(v)) + 1e-5:
+            raise AssertionError(f"train reference: {k} {float(aux_g[k])} on the card, "
+                                 f"{float(v)} on the CPU")
+    pg, pc = dict(m_g.named_parameters()), dict(m_c.named_parameters())
+    p0 = {n: v for n, v in state.items() if n in pc}
+    within = {"grad": 0, "update": 0}
+    worst = {"grad": 0.0, "update": 0.0, "stat": 0.0}
+    rel_l2 = {}
+    for what, get in (("grad", lambda p, n: p.grad.detach().cpu()),
+                      ("update", lambda p, n: p.detach().cpu() - p0[n])):
+        on_card, on_cpu = ({n: get(p, n) for n, p in d.items()} for d in (pg, pc))
+        # biases right before a train-mode BN have a zero gradient in exact
+        # arithmetic: their scale is 1e-3 of the model's largest
+        floor = 1e-3 * max(float(v.abs().max()) for v in on_cpu.values())
+        for n in pc:
+            if not torch.isfinite(on_card[n]).all():
+                raise AssertionError(f"train reference: non-finite {what} {n}")
+            scale = max(float(on_cpu[n].abs().max()), floor)
+            rel = float((on_card[n] - on_cpu[n]).abs().max()) / scale
+            if not rel <= REF_TENSOR_TOL:
+                raise AssertionError(f"train reference: {what} {n} differs by {rel} of its scale")
+            within[what] += rel <= 1e-3
+            worst[what] = max(worst[what], rel)
+        rel_l2[what] = (sum(float((on_card[n] - on_cpu[n]).norm()) ** 2 for n in pc)
+                        / sum(float(on_cpu[n].norm()) ** 2 for n in pc)) ** 0.5
+        if not rel_l2[what] <= REF_MODEL_TOL:
+            raise AssertionError(f"train reference: {what}s differ by {rel_l2[what]} in "
+                                 f"relative L2")
+    bg = dict(m_g.named_buffers())
+    for n, v in m_c.named_buffers():
+        worst["stat"] = max(worst["stat"], close_err(bg[n].cpu(), v, 1e-3) / float(v.abs().max()))
+    log(f"[train-reference] full-phase step, card vs CPU: {int(ret_c['cluster'].num_clusters)} "
+        f"clusters (ids equal), {int(ret_c['num_final_proposals'])} proposals, loss "
+        f"{float(aux_g['loss']):.6f} / {float(aux_c['loss']):.6f}; worst error relative to its "
+        f"tensor's scale {worst}; relative L2 over the model {rel_l2}; within 1e-3 of their "
+        f"scale: {within['grad']} of {len(pc)} gradients, {within['update']} updates; "
+        f"{time.time() - t0:.1f} s")
+    del m_g, m_c, runs, pg, pc, bg, state
+    torch.cuda.empty_cache()
+    conv_backward_check()
+
+    # ---- 9. train-main: the bench scene at full width ----
+    nb, (sem_o, offs_o, _) = synthetic.bench_train_batch(0)
+    batch = batch_to_device(nb, "cuda")
+    sem_t, offs_t = torch.from_numpy(sem_o).cuda(), torch.from_numpy(offs_o).cuda()
+    cfg = Config(shapes=synthetic.BENCH_SHAPES, optimizer="Adam", lr=1e-3)
+    phases = ("backbone", "full")
+    models, steps = {}, {}
+    for ph in phases:
+        models[ph] = PBNet(synthetic.BENCH_SHAPES, seed=0, device="cuda").train()
+        opt = train_step.make_optimizer(models[ph], cfg)
+        if ph == "backbone":
+            steps[ph] = (lambda s: lambda: (s(batch, cfg.lr), None))(
+                train_step.make_train_step(models[ph], opt, cfg, with_instances=False))
+        else:
+            steps[ph] = (lambda m, o: lambda: full_step(m, o, cfg, batch, sem_t, offs_t, cfg.lr))(
+                models[ph], opt)
+    first = {ph: {n: p.detach().clone() for n, p in models[ph].named_parameters()}
+             for ph in phases}
+    losses = {ph: [] for ph in phases}
+    ms = {ph: [] for ph in phases}
+    peak = {ph: 0.0 for ph in phases}
+    train_launches = {k: 0 for k in KERNELS}
+    for i in range(TRAIN_STEPS + 1):
+        for ph in phases:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t0 = time.perf_counter()
+            aux, ret = steps[ph]()
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) * 1e3
+            counts = launches()
+            if i > 0:
+                ms[ph].append(dt)
+                peak[ph] = max(peak[ph], torch.cuda.max_memory_allocated() / 2**30)
+            vals = {k: float(v) for k, v in aux.items()}
+            losses[ph].append(vals["loss"])
+            if not all(np.isfinite(v) for v in vals.values()):
+                raise AssertionError(f"train {ph} step {i}: non-finite aux {vals}")
+            if counts["onehot_conv"]:
+                raise AssertionError(f"train {ph} step {i}: the banded conv ran under grad")
+            norms = module_grad_norms(models[ph], TRAIN_MODULES[ph])
+            if not all(np.isfinite(v) and v > 0 for v in norms.values()):
+                raise AssertionError(f"train {ph} step {i}: gradient norms {norms}")
+            if ph == "full":
+                over = {k: v for k, v in vals.items() if k.startswith("overflow") and v}
+                ncl, nprop = int(ret["cluster"].num_clusters), int(ret["num_final_proposals"])
+                if ncl <= 0 or nprop <= 0 or over:
+                    raise AssertionError(f"train full step {i}: clusters {ncl}, proposals "
+                                         f"{nprop}, overflow {over}")
+                if not all(vals[k] > 0 for k in ("mask_loss", "dice_loss", "score_loss")):
+                    raise AssertionError(f"train full step {i}: a zero instance loss {vals}")
+                if not all(counts[k] > 0 for k in KERNELS):
+                    raise AssertionError(f"train full step {i}: launches {counts}")
+                if i > 0:
+                    for k in KERNELS:
+                        train_launches[k] += counts[k]
+            elif any(counts[k] for k in KERNELS):
+                raise AssertionError(f"train backbone step {i}: clustering ran {counts}")
+            if i in (0, TRAIN_STEPS):
+                log(f"[train-main] {ph} step {i}: {dt:.1f} ms; "
+                    f"{ {k: round(v, 5) for k, v in vals.items() if not k.startswith('overflow')} }"
+                    + (f"; {ncl} clusters, {nprop} proposals, launches "
+                       f"{ {k: counts[k] for k in KERNELS} }" if ph == "full" else "")
+                    + f"; module grad norms { {k: round(v, 5) for k, v in norms.items()} }")
+    for ph in phases:
+        moved = [n for n, p in models[ph].named_parameters()
+                 if n.split(".")[0] in TRAIN_MODULES[ph] and not torch.equal(p, first[ph][n])]
+        if not moved:
+            raise AssertionError(f"train {ph}: no parameter changed")
+        if not min(losses[ph][1:]) < losses[ph][0]:
+            raise AssertionError(f"train {ph}: the loss did not fall {losses[ph]}")
+        log(f"[train-main] {ph} phase: {TRAIN_STEPS} timed steps ms/step "
+            f"{[round(t, 3) for t in ms[ph]]}; median {statistics.median(ms[ph]):.3f} ms; "
+            f"peak memory {peak[ph]:.3f} GiB; losses {[round(v, 5) for v in losses[ph]]}; "
+            f"{len(moved)} parameter tensors changed; card {card}")
+    log(f"[train-main] B1-B4 launches over the {TRAIN_STEPS} timed full-phase steps "
+        f"{train_launches}")
+
+    # ---- 11. (profiled here, while the models are built) train trace ----
+    for ph in phases:
+        log(f"[train-trace] {ph} phase:")
+        trace_requests(steps[ph], 1, tag="train-trace", split_backward=True)
+    del models, steps, first, batch
+    torch.cuda.empty_cache()
+
+    # ---- 10. train-engine: engine.train on CUDA by default, then resume ----
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as logdir:
+        ecfg = Config(shapes=train_ref_shapes(), epochs=2, cluster_epoch=1, validation=False,
+                      logpath=logdir)
+        ds = synthetic.SyntheticDataset(ecfg.shapes, n_scenes=2)
+        model, _ = engine.train(ecfg, ds, max_epochs=1, max_iters=2)
+        if next(model.parameters()).device.type != "cuda":
+            raise AssertionError("engine.train did not run on CUDA by default")
+        ck1 = sorted(f for f in os.listdir(logdir) if f.endswith(".ckpt"))
+        model, _ = engine.train(ecfg, ds, max_epochs=2, max_iters=1)
+        ck2 = sorted(f for f in os.listdir(logdir) if f.endswith(".ckpt"))
+        with open(os.path.join(logdir, "scalars.jsonl")) as f:
+            epochs = sorted({json.loads(line)["step"] for line in f})
+        if ck1 != ["000000001.ckpt"] or "000000002.ckpt" not in ck2 or epochs != [1, 2]:
+            raise AssertionError(f"engine: checkpoints {ck1} then {ck2}, scalar epochs {epochs}")
+    log(f"[train-engine] engine.train on {next(model.parameters()).device}: checkpoint {ck1}, "
+        f"resumed at epoch 2 ({ck2}), scalars for epochs {epochs}; {time.time() - t0:.1f} s")
+    return train_launches
 
 
 if __name__ == "__main__":

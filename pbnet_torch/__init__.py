@@ -7,8 +7,10 @@ module has an obvious counterpart:
   nn/       sparse conv (kernel-map gather + GEMM), masked norms, MinkUNets
   ops/      clustering; its four banded-window passes are CUDA kernels
             (ops/window_kernels.py, csrc/window_kernels.cu)
-  models/   the three-stage PBNet inference forward
-  convert   JAX-package variables -> this package's state dict
+  models/   the three-stage PBNet forward and its losses
+  parallel/ the train step and the optimizers (one device)
+  engine    the training loop: checkpoints, scalars, auto-resume
+  convert   JAX-package variables (and optax state) -> this package's
   synthetic seeded synthetic scenes for tests and the chip smoke run
 
 The port imports neither JAX nor ``pbnet_tpu``.  Entry points run on CUDA

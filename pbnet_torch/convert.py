@@ -12,6 +12,11 @@ Name rules (flax -> port):
 * ``.../scale``, ``.../bias``         -> ``....weight``, ``....bias`` (norms)
 * ``.../alpha``                       -> ``....alpha`` (PReLU)
 * batch_stats ``mean``, ``var``       -> ``running_mean``, ``running_var``
+
+``optimizer_state_from_optax`` carries an optax optimizer state (the Adam
+moments of ``ScaleByAdamState``, or the momentum of ``TraceState``) into the
+state dict of the port's optimizer over the same model, so that a run can
+continue from a JAX checkpoint.
 """
 
 from __future__ import annotations
@@ -62,3 +67,48 @@ def state_dict_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
         out[".".join(path[:-1] + (_STATS[path[-1]],))] = torch.from_numpy(
             np.array(v, dtype=v.dtype, order="C"))
     return out
+
+
+def _params_by_name(tree) -> dict[str, torch.Tensor]:
+    """A params-shaped pytree (optax moments) under the port's names."""
+    return {name: torch.from_numpy(np.array(val, dtype=val.dtype, order="C"))
+            for name, val in (_param_name(p, v) for p, v in _leaves(tree))}
+
+
+def _find_state(state, fields):
+    """The first node of an optax state (a NamedTuple, or a tuple of them
+    for a chain) that has every attribute in ``fields``."""
+    if all(hasattr(state, f) for f in fields):
+        return state
+    if isinstance(state, (tuple, list)):
+        for s in state:
+            found = _find_state(s, fields)
+            if found is not None:
+                return found
+    return None
+
+
+def optimizer_state_from_optax(opt_state, model: torch.nn.Module,
+                               optimizer: torch.optim.Optimizer) -> dict:
+    """A ``optimizer.load_state_dict`` mapping from the JAX package's optax
+    state (leaves as numpy arrays).  ``optimizer`` runs over
+    ``model.parameters()`` in order (``train_step.make_optimizer``): Adam or
+    AdamW takes ``count``, ``mu`` and ``nu`` as its ``step``, ``exp_avg`` and
+    ``exp_avg_sq``; ``OptaxSGD`` takes ``trace``."""
+    names = [n for n, _ in model.named_parameters()]
+    adam = _find_state(opt_state, ("count", "mu", "nu"))
+    if adam is not None:
+        mu, nu = _params_by_name(adam.mu), _params_by_name(adam.nu)
+        step = torch.tensor(float(np.asarray(adam.count)), dtype=torch.float32)
+        per = [{"step": step.clone(), "exp_avg": mu[n], "exp_avg_sq": nu[n]} for n in names]
+    else:
+        tr = _find_state(opt_state, ("trace",))
+        if tr is None:
+            raise KeyError(f"no Adam or trace state in {type(opt_state).__name__}")
+        trace = _params_by_name(tr.trace)
+        per = [{"trace": trace[n]} for n in names]
+    sd = optimizer.state_dict()
+    order = [i for g in sd["param_groups"] for i in g["params"]]
+    if len(order) != len(names):
+        raise ValueError(f"the optimizer holds {len(order)} parameters, the model {len(names)}")
+    return {"state": dict(zip(order, per)), "param_groups": sd["param_groups"]}

@@ -1,5 +1,5 @@
-"""PBNet: divide-and-conquer 3D instance segmentation, inference forward
-(port of pbnet_tpu/models/pbnet.py).
+"""PBNet: divide-and-conquer 3D instance segmentation (port of
+pbnet_tpu/models/pbnet.py).
 
 stage 1  backbone MinkUNet (6 -> 32) + semantic/offset heads, voxel->point
          gather
@@ -11,9 +11,19 @@ stage 3  ScoreNet over the kept proposal voxels, global avg+max pooled IoU
 
 Every capacity comes from config.StaticShapes and every stage reports
 overflow counts instead of silently dropping work, as in the JAX package.
+
+``model.eval()`` (the default) runs the forward under ``torch.no_grad`` with
+the BN running statistics and, where the shapes set spans, the banded convs.
+``model.train()`` normalises with batch statistics and lets the gradient
+flow through all three stages: the per-point gathers, the local-scene
+features, the D_Unet and ScoreNet inputs and both global pools.  Banding
+plans are never attached in train mode (the banded conv has no backward);
+the clustering's integer outputs carry no gradient, as in the JAX package.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -62,10 +72,23 @@ def _i32(v, dev):
     return torch.tensor(v, dtype=torch.int32, device=dev)
 
 
+def _no_grad_in_eval(fn):
+    """Run a stage under ``torch.no_grad`` in eval mode; in train mode it
+    follows the caller's grad mode."""
+    @functools.wraps(fn)
+    def wrapper(self, *args, **kw):
+        if self.training:
+            return fn(self, *args, **kw)
+        with torch.no_grad():
+            return fn(self, *args, **kw)
+    return wrapper
+
+
 class PBNet(nn.Module):
-    """The three-stage inference forward.  Parameters are made on
-    ``device`` (CUDA unless the caller passes ``device="cpu"``) from a seeded
-    ``torch.Generator``; ``convert.py`` loads the JAX package's variables."""
+    """The three-stage forward.  Parameters are made on ``device`` (CUDA
+    unless the caller passes ``device="cpu"``) from a seeded
+    ``torch.Generator``; ``convert.py`` loads the JAX package's variables.
+    The model starts in eval mode."""
 
     def __init__(self, shapes: StaticShapes, sem_num: int = 20,
                  voxel_size: float = 0.02, scale_size: float = 1.0,
@@ -96,13 +119,13 @@ class PBNet(nn.Module):
         self.eval()
 
     # ------------------------------------------------------------------
-    @torch.no_grad()
+    @_no_grad_in_eval
     def backbone(self, batch: dict) -> dict:
         """Stage 1: voxel backbone, heads, voxel->point gather."""
         sh = self.shapes
         level0, feats = make_level0(batch["vox_coords"], batch["vox_feats"], batch["vox_valid"])
         topo = tp.build_unet_topology(level0, list(sh.voxel_caps))
-        if sh.onehot_spans:
+        if sh.onehot_spans and not self.training:
             topo = onehot_conv.attach_plans(topo, sh.onehot_tm, sh.onehot_spans)
         point_feat_v = self.MEUnet(topo, feats)  # (V, 32)
         v0 = topo.levels[0].valid
@@ -135,7 +158,7 @@ class PBNet(nn.Module):
         }
 
     # ------------------------------------------------------------------
-    @torch.no_grad()
+    @_no_grad_in_eval
     def instance_stage(self, batch: dict, bb: dict, with_labels: bool) -> dict:
         """Stages 2+3.  ``bb`` is stage 1's output (or an injected one with
         the same keys: sem_pred_p, point_ok, offset_pred_p, sem_soft_p,
@@ -157,7 +180,9 @@ class PBNet(nn.Module):
         fg = ok & (sem_p >= 2) & class_ok[sem_clip.long()]
 
         # ---- clustering over the fg points, compacted to fg_point_cap ----
-        shifted = xyz + bb["offset_pred_p"]
+        # (its outputs are integers and centers that only order neighbors:
+        # no gradient flows through it)
+        shifted = (xyz + bb["offset_pred_p"]).detach()
         NF = sh.fg_point_cap or n
         ckw = dict(radius=self.radius, min_pts=self.min_pts, count_mean=count_mean,
                    cluster_cap=sh.cluster_cap, band=sh.cluster_band,
@@ -278,7 +303,7 @@ class PBNet(nn.Module):
         # the JAX package derives these maps from the backbone's; the lookup
         # build gives the same maps (pbnet_torch/core/topology.py)
         topo2 = tp.build_unet_topology(lv2, list(sh.local_voxel_caps))
-        if sh.onehot_spans_local:
+        if sh.onehot_spans_local and not self.training:
             topo2 = onehot_conv.attach_plans(topo2, sh.onehot_tm, sh.onehot_spans_local)
         d_feat = self.D_Unet(topo2, feats2)
         mask_v = self.linear_binary(d_feat, topo2.levels[0].valid)[:, 0]
@@ -394,7 +419,7 @@ class PBNet(nn.Module):
         }
 
     # ------------------------------------------------------------------
-    @torch.no_grad()
+    @_no_grad_in_eval
     def forward(self, batch: dict, with_instances: bool = True,
                 with_labels: bool = False) -> dict:
         bb = self.backbone(batch)

@@ -10,11 +10,17 @@ Kernel maps come from a precomputed :class:`~pbnet_torch.core.topology
 names follow the JAX package's flax names (``conv0``, ``bn0``, ``conv{s}s2``,
 ``bn{s}``, ``block{n}_{i}``, ``convtr{k}``, ``bntr{k}``, ``final``).
 
+Backward maps as the JAX package sets them: the stem takes its own map
+column-reversed, a strided (down) conv at level s the up map ``up_maps[s]``,
+a transposed (up) conv to level l the down map ``down_maps[l]``, and a
+residual block its k3 map reversed.
+
 Banding plans (``topo.k3_plans``/``down_plans``/``up_plans``, attached by
-``onehot_conv.attach_plans``) go to the same convs as in the JAX package:
-an encoder stage's strided conv takes ``down_plans[s]`` and its blocks
-``k3_plans[s + 1]``; a decoder stage's transposed conv takes
-``up_plans[lvl]`` and its blocks ``k3_plans[lvl]``; the stem never bands.
+``onehot_conv.attach_plans``) go to the same convs as in the JAX package,
+in eval mode only (the banded conv has no backward): an encoder stage's
+strided conv takes ``down_plans[s]`` and its blocks ``k3_plans[s + 1]``; a
+decoder stage's transposed conv takes ``up_plans[lvl]`` and its blocks
+``k3_plans[lvl]``; the stem never bands.
 The JAX package runs a dense-grid conv at levels of at most 30,000 grid
 cells, and there its dense path wins over a band plan; the port has no
 dense convs (they compute the same values), so a span set at such a level
@@ -30,14 +36,16 @@ import torch
 from torch import nn
 
 from ..core.topology import UNetTopology
-from .modules import BLOCK_EXPANSION, BLOCKS, MaskedBatchNorm, SparseConv, SparseLinear
+from .modules import (BLOCK_EXPANSION, BLOCKS, MaskedBatchNorm, SparseConv, SparseLinear,
+                      flipped_map)
 
 STEM_VOLUME = 125  # k=5 stem
 
 
-def _plan(plans, i):
-    """Plan ``i`` of a topology's plan tuple, or None."""
-    return plans[i] if i < len(plans) else None
+def _plan(plans, i, training):
+    """Plan ``i`` of a topology's plan tuple, or None (always None in train
+    mode)."""
+    return plans[i] if not training and i < len(plans) else None
 
 
 class MinkUNetBase(nn.Module):
@@ -83,16 +91,18 @@ class MinkUNetBase(nn.Module):
 
     def forward(self, topo: UNetTopology, feats: torch.Tensor) -> torch.Tensor:
         v = [lv.valid for lv in topo.levels]
-        out_p1 = torch.relu(self.bn0(self.conv0(feats, topo.stem_map, v[0]), v[0]))
+        tr = self.training
+        out_p1 = torch.relu(self.bn0(
+            self.conv0(feats, topo.stem_map, v[0], kmap_bwd=flipped_map(topo.stem_map)), v[0]))
 
         enc = []
         x = out_p1
         for s in range(4):
             x = getattr(self, f"conv{s+1}s2")(x, topo.down_maps[s], v[s + 1],
-                                              _plan(topo.down_plans, s))
+                                              _plan(topo.down_plans, s, tr), topo.up_maps[s])
             x = torch.relu(getattr(self, f"bn{s+1}")(x, v[s + 1]))
             x = self._blocks(f"block{s+1}", self.layers[s], x,
-                             topo.k3_maps[s + 1], v[s + 1], _plan(topo.k3_plans, s + 1))
+                             topo.k3_maps[s + 1], v[s + 1], _plan(topo.k3_plans, s + 1, tr))
             enc.append(x)
 
         # decoder: levels 3, 2, 1, 0 with skips enc[2], enc[1], enc[0], out_p1
@@ -100,11 +110,11 @@ class MinkUNetBase(nn.Module):
         for d in range(4):
             lvl = 3 - d
             x = getattr(self, f"convtr{4+d}")(x, topo.up_maps[lvl], v[lvl],
-                                              _plan(topo.up_plans, lvl))
+                                              _plan(topo.up_plans, lvl, tr), topo.down_maps[lvl])
             x = torch.relu(getattr(self, f"bntr{4+d}")(x, v[lvl]))
             x = torch.cat([x, skips[d]], 1)
             x = self._blocks(f"block{5+d}", self.layers[4 + d], x,
-                             topo.k3_maps[lvl], v[lvl], _plan(topo.k3_plans, lvl))
+                             topo.k3_maps[lvl], v[lvl], _plan(topo.k3_plans, lvl, tr))
         return self.final(x, v[0])
 
 
@@ -137,16 +147,22 @@ class MinkMiniUNet(nn.Module):
 
     def forward(self, topo: UNetTopology, feats: torch.Tensor) -> torch.Tensor:
         v = [lv.valid for lv in topo.levels]
-        out_p0 = torch.relu(self.bn0(self.conv0(feats, topo.stem_map, v[0]), v[0]))
-        x = self.conv1s2(out_p0, topo.down_maps[0], v[1], _plan(topo.down_plans, 0))
+        tr = self.training
+        out_p0 = torch.relu(self.bn0(
+            self.conv0(feats, topo.stem_map, v[0], kmap_bwd=flipped_map(topo.stem_map)), v[0]))
+        x = self.conv1s2(out_p0, topo.down_maps[0], v[1], _plan(topo.down_plans, 0, tr),
+                         topo.up_maps[0])
         x = torch.relu(self.bn1(x, v[1]))
         for i in range(self.layers[0]):
-            x = getattr(self, f"block1_{i}")(x, topo.k3_maps[1], v[1], _plan(topo.k3_plans, 1))
-        x = self.convtr2(x, topo.up_maps[0], v[0], _plan(topo.up_plans, 0))
+            x = getattr(self, f"block1_{i}")(x, topo.k3_maps[1], v[1],
+                                             _plan(topo.k3_plans, 1, tr))
+        x = self.convtr2(x, topo.up_maps[0], v[0], _plan(topo.up_plans, 0, tr),
+                         topo.down_maps[0])
         x = torch.relu(self.bntr1(x, v[0]))
         x = torch.cat([x, out_p0], 1)
         for i in range(self.layers[1]):
-            x = getattr(self, f"block2_{i}")(x, topo.k3_maps[0], v[0], _plan(topo.k3_plans, 0))
+            x = getattr(self, f"block2_{i}")(x, topo.k3_maps[0], v[0],
+                                             _plan(topo.k3_plans, 0, tr))
         return self.final(x, v[0])
 
 
@@ -169,9 +185,10 @@ ARCHS = {
 
 def mink_unet(in_channels: int, out_channels: int, arch: str = "MinkUNet18A",
               generator: torch.Generator | None = None, device=None) -> nn.Module:
-    """Factory matching the reference's Mink_unet()."""
+    """Factory matching the reference's Mink_unet(); the network starts in
+    eval mode, as ``PBNet`` does (``.train()`` switches it)."""
     if arch == "Mini_Unet":
-        return MinkMiniUNet(in_channels, out_channels, generator=generator, device=device)
+        return MinkMiniUNet(in_channels, out_channels, generator=generator, device=device).eval()
     if arch not in ARCHS:
         raise ValueError(f"architecture {arch} not supported")
     cfg = ARCHS[arch]
@@ -179,4 +196,4 @@ def mink_unet(in_channels: int, out_channels: int, arch: str = "MinkUNet18A",
         raise NotImplementedError(
             f"{arch}: {cfg['block']} blocks are not ported yet")
     return MinkUNetBase(in_channels, out_channels, generator=generator,
-                        device=device, **cfg)
+                        device=device, **cfg).eval()

@@ -1,5 +1,5 @@
 """Sparse-tensor modules: conv, norm, activation, residual block, MLP head
-(port of pbnet_tpu/nn/modules.py, eval mode).
+(port of pbnet_tpu/nn/modules.py).
 
 Feature arrays are (M, C) with invalid rows kept at exactly 0 by masking
 after every layer, so kernel-map gathers of missing neighbors read zeros.
@@ -20,6 +20,12 @@ def _masked(y, valid):
     return torch.where(valid[:, None], y, 0.0)
 
 
+def flipped_map(kmap):
+    """The transpose of a same-level map with symmetric offsets (offset -d
+    sits at column K-1-k), made only where a backward may need it."""
+    return kmap.flip(1) if torch.is_grad_enabled() else None
+
+
 def kaiming_conv_init(shape, generator: torch.Generator | None, device=None):
     """Kaiming-normal fan_out/relu for (K, Cin, Cout) sparse-conv kernels
     (ME.utils.kaiming_normal_)."""
@@ -36,12 +42,11 @@ class SparseConv(nn.Module):
                  generator: torch.Generator | None = None, device=None):
         super().__init__()
         self.kernel = nn.Parameter(
-            kaiming_conv_init((kernel_volume, cin, cout), generator, device),
-            requires_grad=False,
-        )
+            kaiming_conv_init((kernel_volume, cin, cout), generator, device))
 
-    def forward(self, feats, kmap, valid_out, plan=None):
-        return sparse_ops.gather_conv(feats, kmap, self.kernel, valid_out, plan=plan)
+    def forward(self, feats, kmap, valid_out, plan=None, kmap_bwd=None):
+        return sparse_ops.gather_conv(feats, kmap, self.kernel, valid_out,
+                                      kmap_bwd=kmap_bwd, plan=plan)
 
 
 class SparseLinear(nn.Module):
@@ -52,11 +57,8 @@ class SparseLinear(nn.Module):
         super().__init__()
         # flax nn.Dense default init: lecun-normal kernel, zero bias
         w = torch.randn((cout, cin), generator=generator, device=device) * (1.0 / cin) ** 0.5
-        self.weight = nn.Parameter(w, requires_grad=False)
-        self.bias = (
-            nn.Parameter(torch.zeros(cout, device=device), requires_grad=False)
-            if use_bias else None
-        )
+        self.weight = nn.Parameter(w)
+        self.bias = nn.Parameter(torch.zeros(cout, device=device)) if use_bias else None
 
     def forward(self, feats, valid):
         y = torch.matmul(feats, self.weight.t())
@@ -66,21 +68,38 @@ class SparseLinear(nn.Module):
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm over valid rows with torch semantics (eps 1e-5), eval
-    mode: normalises with the running statistics.  The train-mode batch
-    statistics come with the training port."""
+    """BatchNorm over valid rows with torch semantics (momentum 0.1, eps
+    1e-5, unbiased running variance).  Eval mode normalises with the running
+    statistics; train mode with the valid rows' statistics in the JAX
+    package's formula (E[x^2] - mean^2, not torch's two-pass variance, which
+    gives other values and gradients) and updates the running ones."""
 
-    def __init__(self, c: int, eps: float = 1e-5, device=None):
+    def __init__(self, c: int, eps: float = 1e-5, momentum: float = 0.1, device=None):
         super().__init__()
         self.eps = eps
-        self.weight = nn.Parameter(torch.ones(c, device=device), requires_grad=False)
-        self.bias = nn.Parameter(torch.zeros(c, device=device), requires_grad=False)
+        self.momentum = momentum
+        self.weight = nn.Parameter(torch.ones(c, device=device))
+        self.bias = nn.Parameter(torch.zeros(c, device=device))
         self.register_buffer("running_mean", torch.zeros(c, device=device))
         self.register_buffer("running_var", torch.ones(c, device=device))
 
     def forward(self, feats, valid):
-        y = (feats - self.running_mean) * torch.rsqrt(
-            self.running_var + self.eps) * self.weight + self.bias
+        if self.training:
+            vmask = valid[:, None].to(feats.dtype)
+            cnt = vmask.sum()
+            s = (feats * vmask).sum(0)
+            ss = ((feats * feats) * vmask).sum(0)
+            cnt = torch.clamp(cnt, min=1.0)
+            mean = s / cnt
+            var = torch.clamp(ss / cnt - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                unbiased = var * cnt / torch.clamp(cnt - 1.0, min=1.0)
+                self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+                self.running_var.copy_((1 - m) * self.running_var + m * unbiased)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (feats - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
         return _masked(y, valid)
 
 
@@ -89,8 +108,7 @@ class PReLU(nn.Module):
 
     def __init__(self, device=None):
         super().__init__()
-        self.alpha = nn.Parameter(torch.full((1,), 0.25, device=device),
-                                  requires_grad=False)
+        self.alpha = nn.Parameter(torch.full((1,), 0.25, device=device))
 
     def forward(self, x):
         return torch.where(x >= 0, x, self.alpha * x)
@@ -117,8 +135,9 @@ class BasicBlock(nn.Module):
             self.downsample_conv = None
 
     def forward(self, feats, kmap3, valid, plan=None):
-        y = torch.relu(self.norm1(self.conv1(feats, kmap3, valid, plan), valid))
-        y = self.norm2(self.conv2(y, kmap3, valid, plan), valid)
+        kb = flipped_map(kmap3)
+        y = torch.relu(self.norm1(self.conv1(feats, kmap3, valid, plan, kb), valid))
+        y = self.norm2(self.conv2(y, kmap3, valid, plan, kb), valid)
         if self.downsample_conv is not None:
             skip = self.downsample_norm(self.downsample_conv(feats, valid), valid)
         else:

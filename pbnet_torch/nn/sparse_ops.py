@@ -5,8 +5,9 @@ gather and one GEMM ``(M, K*Cin) @ (K*Cin, Cout)``: each (output voxel,
 offset) pair has at most one input voxel, so nothing is scattered.  The JAX
 package leaves this product to XLA, so the port leaves it to ``torch.matmul``.
 
-Forward only in this package for now: training brings the gradient, whose
-backward is the same gather-GEMM through the transposed map.
+The backward is a gather-GEMM too (``_GatherConv``): every kernel map's
+transpose is another kernel map of the same topology, so the gradient
+gathers ``dy`` through it instead of scatter-adding into ``feats``.
 """
 
 from __future__ import annotations
@@ -30,8 +31,53 @@ def take_rows0(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return ext[safe]
 
 
+def _conv_fwd(feats, kmap, weights, valid_out):
+    k, cin, cout = weights.shape
+    g = take_rows0(feats.to(COMPUTE_DTYPE), kmap).reshape(kmap.shape[0], k * cin)
+    w = weights.to(COMPUTE_DTYPE).reshape(k * cin, cout)
+    return torch.where(valid_out[:, None], torch.matmul(g.float(), w.float()), 0.0)
+
+
+class _GatherConv(torch.autograd.Function):
+    """The gather conv with the JAX package's hand-written VJP
+    (``pbnet_tpu/nn/sparse_ops.py`` ``_gc_bwd``).  ``kmap_bwd[j, k]`` is the
+    output row that reads input ``j`` at forward offset ``k``: the
+    column-reversed map for a same-level conv, the up map of the same level
+    pair for a strided conv, the down map for a transposed conv.
+
+    Only the inputs are saved, never the (M, K*Cin) img2col buffer: the
+    backward gathers ``dy`` instead, so a train step holds one conv's
+    buffer at a time (the JAX package rematerialises its blocks for the same
+    reason)."""
+
+    @staticmethod
+    def forward(ctx, feats, kmap, kmap_bwd, weights, valid_out):
+        ctx.save_for_backward(feats, kmap_bwd, weights, valid_out)
+        return _conv_fwd(feats, kmap, weights, valid_out)
+
+    @staticmethod
+    def backward(ctx, dy):
+        feats, kmap_bwd, weights, valid_out = ctx.saved_tensors
+        k, cin, cout = weights.shape
+        dy = torch.where(valid_out[:, None], dy, 0.0).to(COMPUTE_DTYPE)
+        # one gather serves both gradients: gy[j, k] = dy[output reading j at
+        # forward offset k]
+        gy = take_rows0(dy, kmap_bwd).reshape(kmap_bwd.shape[0], k * cout).float()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            # dx[j] = sum_k gy[j, k] @ W[k]^T
+            wt = weights.to(COMPUTE_DTYPE).transpose(1, 2).reshape(k * cout, cin)
+            dx = torch.matmul(gy, wt.float())
+        if ctx.needs_input_grad[3]:
+            # dW[k] = sum_i x[kmap[i, k]] dy[i] = sum_j x[j] gy[j, k]
+            dw = torch.matmul(feats.to(COMPUTE_DTYPE).float().t(), gy)
+            dw = dw.reshape(cin, k, cout).transpose(0, 1)
+        return dx, None, None, dw, None
+
+
 def gather_conv(feats: torch.Tensor, kmap: torch.Tensor, weights: torch.Tensor,
                 valid_out: torch.Tensor, bias: torch.Tensor | None = None,
+                kmap_bwd: torch.Tensor | None = None,
                 plan: onehot_conv.OnehotPlan | None = None) -> torch.Tensor:
     """Sparse convolution as gather + GEMM.  Returns (M_out, Cout) f32.
 
@@ -41,23 +87,29 @@ def gather_conv(feats: torch.Tensor, kmap: torch.Tensor, weights: torch.Tensor,
     operands, f32 accumulation" (a product of two bf16 values is exact in
     f32).
 
+    With ``kmap_bwd`` (the transposed map, see ``_GatherConv``) the
+    backward is a gather-GEMM; without it autograd differentiates the same
+    ops (a scatter-add into ``feats``), as in the JAX package.
+
     With a banding ``plan`` of this map and at least ``onehot_conv.MIN_CIN``
     input channels, the banded conv runs instead; it drops the entries the
-    plan counts in its ``overflow``.
+    plan counts in its ``overflow``.  The banded conv has no backward, so a
+    plan raises where a gradient is wanted (the models attach plans in eval
+    mode only).
     """
     if plan is not None and feats.shape[1] >= onehot_conv.MIN_CIN:
+        if torch.is_grad_enabled() and (feats.requires_grad or weights.requires_grad):
+            raise RuntimeError("the banded conv has no backward: a banding plan "
+                               "reached a conv while gradients are wanted")
         y = onehot_conv.onehot_conv(feats.contiguous(), plan, weights, valid_out,
                                     COMPUTE_DTYPE)
-        if bias is not None:
-            y = torch.where(valid_out[:, None], y + bias, 0.0)
-        return y
-    k, cin, cout = weights.shape
-    g = take_rows0(feats.to(COMPUTE_DTYPE), kmap).reshape(kmap.shape[0], k * cin)
-    w = weights.to(COMPUTE_DTYPE).reshape(k * cin, cout)
-    y = torch.matmul(g.float(), w.float())
+    elif kmap_bwd is not None and torch.is_grad_enabled():
+        y = _GatherConv.apply(feats, kmap, kmap_bwd, weights, valid_out)
+    else:
+        y = _conv_fwd(feats, kmap, weights, valid_out)
     if bias is not None:
-        y = y + bias
-    return torch.where(valid_out[:, None], y, 0.0)
+        y = torch.where(valid_out[:, None], y + bias, 0.0)
+    return y
 
 
 def global_pool(feats: torch.Tensor, batch_ids: torch.Tensor, valid: torch.Tensor,

@@ -12,7 +12,10 @@ Copies from the JAX package's entry scripts (which the port does not import):
   weights predict chaotic semantics, which the class gate rejects);
 * :func:`bench_batch` — the bench's padded voxel/point batch;
 * :func:`synthetic_batch` and :data:`GRAFT_SHAPES` — the tiny two-instance
-  scene (``__graft_entry__.py:8-96``).
+  scene (``__graft_entry__.py:8-96``);
+* :func:`bench_train_batch` — the bench scene with the labels a train step
+  reads (``bench.py:361-371``), and :class:`SyntheticDataset`, a tiny
+  in-memory dataset with the JAX package's training interface.
 
 Everything is numpy, made from ``np.random.RandomState`` seeds.
 """
@@ -254,3 +257,50 @@ def synthetic_batch(shapes: StaticShapes, rng, n_pts=400, n_copies=1) -> dict:
         "inst_info": info,
         "instance_pointnum": pointnum,
     }
+
+
+def bench_train_batch(seed: int = 0, shapes: StaticShapes = BENCH_SHAPES):
+    """(numpy batch, oracle (sem_pred_p, offset_pred_p, sem_soft_p)) of the
+    bench scene for a train step: ``bench_batch`` plus ``sem_label`` and
+    ``ins_label`` (-100 in the padding and, for instances, at floor and
+    wall), ``inst_info`` with each instance point's object center in
+    columns 0:3 (-100 elsewhere) and ``instance_pointnum``."""
+    rng = np.random.RandomState(seed)
+    xyz, sem, ins, centers = make_scene(rng)
+    batch = bench_batch(rng, xyz, shapes)
+    n, P = xyz.shape[0], shapes.point_cap
+    has_ins = ins >= 0
+    info = np.full((P, 9), -100.0, np.float32)
+    info[:n][has_ins, 0:3] = centers[ins[has_ins]]
+    pointnum = np.zeros(shapes.instance_cap, np.int32)
+    pointnum[: ins.max() + 1] = np.bincount(ins[has_ins])
+    batch.update(sem_label=_pad(sem.astype(np.int32), P, -100),
+                 ins_label=_pad(ins.astype(np.int32), P, -100),
+                 inst_info=info, instance_pointnum=pointnum)
+    return batch, oracle_stage1(xyz, sem, ins, centers, P)
+
+
+class SyntheticDataset:
+    """``n_scenes`` tiny two-instance scenes (``synthetic_batch``) in memory,
+    with the training interface of the JAX package's ``Dataset``: one scene
+    per batch, a seeded shuffle per epoch."""
+
+    def __init__(self, shapes: StaticShapes = GRAFT_SHAPES, n_scenes: int = 2,
+                 seed: int = 0, manual_seed: int = 22):
+        rng = np.random.RandomState(seed)
+        self.scenes = [synthetic_batch(shapes, rng) for _ in range(n_scenes)]
+        self.train_file_list = [f"synthetic{i:04d}" for i in range(n_scenes)]
+        self.manual_seed = manual_seed
+
+    def train_epoch_ids(self, epoch: int):
+        order = np.random.RandomState(self.manual_seed + epoch).permutation(len(self.scenes))
+        return [order[i:i + 1] for i in range(len(order))]
+
+    def train_batch(self, ids) -> dict:
+        if len(ids) != 1:
+            raise ValueError("SyntheticDataset batches hold one scene")
+        return dict(self.scenes[int(ids[0])])
+
+    def train_loader(self, epoch: int):
+        for ids in self.train_epoch_ids(epoch):
+            yield self.train_batch(ids)

@@ -9,6 +9,12 @@ TF32 off); two launches on the same inputs must equal bit for bit (the slot
 split adds its partial tiles in a fixed order).  Every other kernel must
 equal its plain version exactly.
 
+Training on the card: the gather conv's backward (the transposed-map gather
+and its GEMMs) and train-mode BN against the same code on the CPU, within
+1e-3 of each gradient's largest magnitude (the index backwards on the card
+add with atomics, in another order), and a banding plan refused where a
+gradient is wanted.
+
 This file imports neither JAX nor pbnet_tpu, so it runs on a machine that
 has only the port's dependencies:
 
@@ -22,7 +28,9 @@ import pytest
 import torch
 
 from pbnet_torch.models.pbnet import COUNT_MEAN
+from pbnet_torch.nn import modules as nm
 from pbnet_torch.nn import onehot_conv as oc
+from pbnet_torch.nn import sparse_ops as so
 from pbnet_torch.ops import cluster as cl
 from pbnet_torch.ops import window_kernels as wk
 
@@ -373,3 +381,86 @@ def test_masked_window_reduce_edges(dev, case, minimize):
         assert (got[:, :16] == t(full)[:, None]).all()
     elif case == "identity":
         assert ((got[:, 40:60] == -1) | (got[:, 40:60] == 2**31 - 1)).all()
+
+
+def grad_close(got, want):
+    got, want = got.detach().cpu(), want.detach().cpu()
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("kind", ["k3", "down", "up"])
+def test_conv_backward_matches_cpu(dev, kind):
+    """The transposed-map backward on the card against the CPU plain
+    autograd (a scatter-add) on maps with -1 entries and padding rows, with
+    f32 operands; with bf16 operands against the same backward on the CPU
+    (the plain autograd rounds dx to bf16 where this backward rounds dy)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(len(kind))
+    m_fine, m_coarse = 600, 200
+    K = 27 if kind == "k3" else 8
+    m_in, m_out = {"k3": (m_fine, m_fine), "down": (m_fine, m_coarse),
+                   "up": (m_coarse, m_fine)}[kind]
+    km = banded_map(rng, m_out, m_in, K, 3 if K == 27 else 2, 30)
+    for k in range(K):  # a kernel map reads each input at most once per offset
+        _, first = np.unique(km[:, k], return_index=True)
+        dup = np.ones(m_out, bool)
+        dup[first] = False
+        km[dup, k] = -1
+    # the transpose: kb[j, k] is the output row reading input j at offset k
+    kb = np.full((m_in, K), -1, np.int32)
+    rows, cols = np.nonzero(km >= 0)
+    kb[km[rows, cols], cols] = rows
+    valid = rng.rand(m_out) < 0.9
+    feats = rng.randn(m_in, 32).astype(np.float32)
+    w = rng.randn(K, 32, 48).astype(np.float32)
+    dy = rng.randn(m_out, 48).astype(np.float32)
+    for dtype in (torch.float32, torch.bfloat16):
+        old = so.COMPUTE_DTYPE
+        so.COMPUTE_DTYPE = dtype
+        try:
+            out = []
+            for device, bwd in ((dev, kb), ("cpu", None if dtype == torch.float32 else kb)):
+                f = torch.from_numpy(feats).to(device).requires_grad_(True)
+                ww = torch.from_numpy(w).to(device).requires_grad_(True)
+                t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+                y = so.gather_conv(f, t(km), ww, t(valid),
+                                   kmap_bwd=None if bwd is None else t(bwd))
+                y.backward(t(dy))
+                out.append((y, f.grad, ww.grad))
+        finally:
+            so.COMPUTE_DTYPE = old
+        for g, c in zip(*out):
+            grad_close(g, c)
+
+
+def test_batchnorm_train_matches_cpu(dev):
+    rng = np.random.RandomState(9)
+    feats = rng.randn(5000, 64).astype(np.float32) * 3 + 1
+    valid = rng.rand(5000) < 0.8
+    r = rng.randn(5000, 64).astype(np.float32)
+    outs = []
+    for device in (dev, "cpu"):
+        bn = nm.MaskedBatchNorm(64, device=device).train()
+        x = torch.from_numpy(feats).to(device).requires_grad_(True)
+        y = bn(x, torch.from_numpy(valid).to(device))
+        (y * torch.from_numpy(r).to(device)).sum().backward()
+        outs.append((y, x.grad, bn.weight.grad, bn.bias.grad, bn.running_mean, bn.running_var))
+    for g, c in zip(*outs):
+        grad_close(g, c)
+
+
+def test_plan_refused_under_grad(dev):
+    rng = np.random.RandomState(6)
+    km = torch.from_numpy(banded_map(rng, 256, 256, 27, 3, 20)).to(dev)
+    plan = oc.build_onehot_plan(km, 3, 256, tm=64, span=128)
+    feats = torch.from_numpy(rng.randn(256, 64).astype(np.float32)).to(dev)
+    w = torch.from_numpy(rng.randn(27, 64, 32).astype(np.float32)).to(dev).requires_grad_(True)
+    valid = torch.ones(256, dtype=torch.bool, device=dev)
+    before = oc.LAUNCHES["onehot_conv"]
+    with pytest.raises(RuntimeError, match="no backward"):
+        so.gather_conv(feats, km, w, valid, plan=plan)
+    assert oc.LAUNCHES["onehot_conv"] == before
+    with torch.no_grad():
+        so.gather_conv(feats, km, w, valid, plan=plan)
+    assert oc.LAUNCHES["onehot_conv"] == before + 1

@@ -1,9 +1,10 @@
 """The port stands alone: no JAX, no pbnet_tpu, no silent CPU fallback.
 
-* Importing pbnet_torch (every module, the eval ones included) and building
-  and running a model with banded convs leaves ``jax``, ``flax`` and
-  ``pbnet_tpu`` out of ``sys.modules`` (checked in a fresh subprocess, since
-  this test process imports JAX for the parity tests).
+* Importing pbnet_torch (every module, the eval and training ones included),
+  building and running a model with banded convs and running one CPU train
+  step leaves ``jax``, ``flax``, ``optax`` and ``pbnet_tpu`` out of
+  ``sys.modules`` (checked in a fresh subprocess, since this test process
+  imports JAX for the parity tests).
 * No file of the port, nor chip_smoke.py, imports them.
 * An entry point called without ``device`` on a machine without CUDA raises.
 * chip_smoke.py fails, printing no result, without a GPU and outside a
@@ -25,7 +26,7 @@ from pbnet_torch.models.pbnet import PBNet
 from pbnet_torch.synthetic import GRAFT_SHAPES
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|pbnet_tpu)\b", re.M)
+FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|pbnet_tpu)\b", re.M)
 
 
 def _env(**kw):
@@ -43,7 +44,12 @@ def test_import_and_run_leave_jax_out():
         "from pbnet_torch import eval_pipeline\n"
         "from pbnet_torch.nn import onehot_conv\n"
         "from pbnet_torch.ops import cluster, nms, window_kernels\n"
-        "from pbnet_torch.tools import eval_protocol, metrics\n"
+        "from pbnet_torch.tools import eval_protocol, log, metrics\n"
+        "from pbnet_torch import engine\n"
+        "from pbnet_torch.config import Config\n"
+        "from pbnet_torch.models import losses\n"
+        "from pbnet_torch.ops import iou\n"
+        "from pbnet_torch.parallel import train_step\n"
         "import dataclasses\n"
         "sh = dataclasses.replace(synthetic.GRAFT_SHAPES, onehot_tm=128, onehot_spans=(256, 128),\n"
         "                         onehot_spans_local=(256, 128))\n"
@@ -51,7 +57,13 @@ def test_import_and_run_leave_jax_out():
         "          score_arch='Mini_Unet')\n"
         "out = m(batch_to_device(synthetic.synthetic_batch(sh, np.random.RandomState(0)), 'cpu'))\n"
         "gt, sp = synthetic.bench_eval_inputs()\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'flax', 'pbnet_tpu'))\n"
+        "cfg = Config()\n"
+        "opt = train_step.make_optimizer(m, cfg)\n"
+        "b = batch_to_device(synthetic.synthetic_batch(sh, np.random.RandomState(1)), 'cpu')\n"
+        "aux = train_step.make_train_step(m, opt, cfg, with_instances=True)(b, 1e-3)\n"
+        "assert np.isfinite(float(aux['loss'])) and float(aux['grad_norm']) > 0\n"
+        "bad = sorted(k for k in sys.modules\n"
+        "             if k.split('.')[0] in ('jax', 'flax', 'optax', 'pbnet_tpu'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"
     )
