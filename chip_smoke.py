@@ -101,6 +101,30 @@ exits non-zero — no phase catches its own failure):
              one profiled step of each training phase: device-busy ms, the
              idle share and device time by family, with the backward's
              gathers and GEMMs as families of their own.
+12. data-eval
+             from ScanNet files on disk to the AP report, at the default
+             Config (point cap 400,000 in buckets of 0.4, 0.7 and 1.0; the
+             MinkUNet34C / 14A / 34C trio): three val scenes and one test
+             scene written by ``synthetic.write_scannet_scene`` (``DATA_VAL``:
+             one in the 0.4 bucket, one in the 1.0 bucket, one over the
+             largest that the oversize crop cuts) and decoded by the port's
+             ``decode_scannet`` (segmentator included); a checkpoint of
+             seeded weights with ``synthetic.color_oracle`` set, saved by the
+             port's ``checkpoint_save``; ``engine.evaluate_pretrained`` on
+             CUDA with the launch counters zeroed just before and read just
+             after, then ``predict_testset``.  Per scene: points, voxels,
+             bucket, overflow counters, B1-B4 launches, decode s, collate s,
+             forward ms, peak memory and host-eval s.  Gates: zero overflow;
+             each of B1-B4 launched on every scene, B5 and B6 on none; at
+             least two buckets and one cropped scene; a proposal scored;
+             every metric finite in [0, 1]; a submission file for the test
+             scene.  B1-B4 then equal their plain versions exactly at the
+             last scene's arguments (timed beside their bound).  Last, the
+             tiny config ``TINY_EVAL`` evaluates the same files on the card
+             and on the CPU: mIoU, mAcc, allAcc and the per-scene proposal
+             counts equal, every other key within 1e-6.
+             ``python3 chip_smoke.py --only data-eval`` runs the build and
+             this phase alone and prints no result lines.
 
 TF32 is switched off for matmuls and cuDNN: the port's f32 GEMMs run in full
 f32, so the CPU comparisons hold at the stated tolerances.
@@ -113,7 +137,9 @@ path.  B6's ``ms``,
 ``plain_ms``, ``bound_ms`` and ``library_ms`` are per banded request: each
 shape's time times its launches in one request, summed (``shapes`` lists
 them).  ``launches_by_path["train"]`` counts B1-B4 over the 5 timed
-full-phase train steps.  The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
+full-phase train steps, ``launches_by_path["data-eval"]`` over the
+data-eval phase's evaluate run (three scenes), whose own kernel check is
+under ``data_eval``.  The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or outside a checkout of the repository, the script fails and
 prints no result.
 """
@@ -212,6 +238,30 @@ TRAIN_MODULES = {
 # stage-1 outputs the losses read, from the model's own backbone
 STAGE1_KEYS = ("sem_pred_p", "sem_pred_score_p", "offset_pred_p", "point_ok", "overflow_vox",
                "overflow_grid", "overflow_band")
+
+# [data-eval]: ScanNet-layout scenes (``synthetic.write_scannet_scene``,
+# vertices about 1 cm apart) sized for the default Config's eval buckets
+# (0.4, 0.7 and 1.0 of 400,000 points; a scene runs as three TTA copies):
+# one in the 0.4 bucket, one in the 1.0 bucket, one over the largest bucket
+# (the oversize crop); and one test scene.  (name, vertices, objects)
+DATA_VAL = (("scene0000_00", 40_000, 4), ("scene0001_00", 115_000, 8),
+            ("scene0002_00", 170_000, 12))
+DATA_TEST = (("scene0100_00", 40_000, 4),)
+# every object is a NYU40 'cabinet' (semantic index 2), the class the colour
+# oracle predicts on every object: its AP is then that of right classes
+ORACLE_NYU40, ORACLE_CLASS = 3, 2
+# the tiny card-vs-CPU evaluate on the same files: the Mini_Unet trio at
+# small caps in one bucket, so every scene goes through the oversize crop
+# (a spatial window of at most 6,144 points).  The window cuts objects, and
+# the cut pieces that cluster below the size filter send their points to
+# the exact 1-NN pass: its cap is every point
+TINY_EVAL = dict(
+    shapes=dict(point_cap=3 * 6144, voxel_caps=(18432, 9216), cluster_cap=64,
+                local_point_cap=36864, local_voxel_caps=(16384, 8192),
+                score_voxel_caps=(16384, 8192), instance_cap=64, cluster_band=2048,
+                nn_exact_cap=3 * 6144),
+    backbone_arch="Mini_Unet", dunet_arch="Mini_Unet", score_arch="Mini_Unet",
+    eval_bucket_scales=(1.0,))
 
 
 def log(msg):
@@ -557,6 +607,209 @@ def full_step(model, opt, cfg, batch, sem, offs, lr):
     return aux, ret
 
 
+def write_dataset(root, val, test):
+    """Write ScanNet-layout scenes, (name, vertices, objects) each
+    (``synthetic.write_scannet_scene``, seed = the scene's index) under
+    ``root/scans``, decode each with the port's
+    ``decode_scannet`` (segmentator included) into ``root/npy``, write the
+    split lists and ``val_gt``.  Returns {scene: (vertices, decode seconds)}
+    and the seconds the segmentator's build and load took."""
+    import numpy as np
+
+    from pbnet_torch import synthetic
+    from pbnet_torch.data import decode_scannet
+    from pbnet_torch.native import segmentator
+
+    t0 = time.perf_counter()
+    segmentator.loaded_library()
+    build_s = time.perf_counter() - t0
+    scans, npy = os.path.join(root, "scans"), os.path.join(root, "npy")
+    os.makedirs(npy, exist_ok=True)
+    scenes = {}
+    for i, (name, n, n_objects) in enumerate(val + test):
+        nv = synthetic.write_scannet_scene(scans, name, np.random.RandomState(i), n, n_objects,
+                                           object_labels=(ORACLE_NYU40,))
+        t0 = time.perf_counter()
+        decode_scannet.decode_scene(os.path.join(scans, name + "_vh_clean_2.ply"), npy, None,
+                                    with_labels=i < len(val))
+        scenes[name] = (nv, time.perf_counter() - t0)
+    for split, names in (("val", val), ("test", test)):
+        with open(os.path.join(root, f"scannetv2_{split}.txt"), "w") as f:
+            f.write("".join(sc[0] + "\n" for sc in names))
+    decode_scannet.write_val_gt(npy, [sc[0] for sc in val], os.path.join(root, "val_gt"))
+    return scenes, build_s
+
+
+def oracle_checkpoint(cfg):
+    """Seeded weights (``cfg.manual_seed``) with ``synthetic.color_oracle``
+    set, saved by the port's ``checkpoint_save`` into ``cfg.logpath`` as
+    epoch 1."""
+    from pbnet_torch import engine, synthetic
+    from pbnet_torch.tools import log as log_tools
+
+    model = engine.build_model(cfg, "cpu")
+    synthetic.color_oracle(model, ORACLE_CLASS)
+    return log_tools.checkpoint_save({"model": model.state_dict()}, cfg.logpath, 1)
+
+
+def data_eval_configs(root):
+    """(full, tiny) configs of the data-eval phase over ``root``: the
+    default ``Config`` caps and UNets under ``test_config``, and the tiny
+    card-vs-CPU one (``TINY_EVAL``), each with its own checkpoint dir."""
+    from pbnet_torch.config import StaticShapes, test_config
+
+    base = test_config().replace(data_root=root, num_works=2)
+    tiny = dict(TINY_EVAL)
+    shapes = StaticShapes(**tiny.pop("shapes"))
+    return (base.replace(logpath=os.path.join(root, "log")),
+            base.replace(logpath=os.path.join(root, "log_tiny"), shapes=shapes, **tiny))
+
+
+def data_eval_phase(card, reset_launches, launches, device="cuda"):
+    """Phase 12: from ScanNet files on disk to the AP report (see the module
+    docstring).  Returns {kernel: launches in the evaluate run}."""
+    import numpy as np
+    import torch
+
+    from pbnet_torch import engine
+    from pbnet_torch.ops import window_kernels as wk
+
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory() as root:
+        scenes, build_s = write_dataset(root, DATA_VAL, DATA_TEST)
+        decode_s = {k: s for k, (_, s) in scenes.items()}
+        cfg, tiny = data_eval_configs(root)
+        for c in (cfg, tiny):
+            oracle_checkpoint(c)
+        log(f"[data-eval] segmentator built and loaded in {build_s:.2f} s; wrote and decoded "
+            f"{len(scenes)} scenes (vertices, decode s): "
+            f"{ {k: (n, round(s, 3)) for k, (n, s) in scenes.items()} }; buckets "
+            f"{[(b.point_cap, b.voxel_caps[0]) for b in cfg.eval_buckets()]}")
+
+        # the evaluate run, counted: B1-B4's arguments at the eval shapes are
+        # recorded (the last call of each) for the comparison after it
+        captured = {}
+        originals = {k: getattr(wk, k) for k in KERNELS}
+
+        def recorder(name):
+            def wrapped(*a, **kw):
+                captured[name] = (a, kw)
+                return originals[name](*a, **kw)
+            return wrapped
+
+        timing = {}
+        for k in KERNELS:
+            setattr(wk, k, recorder(k))
+        try:
+            reset_launches()
+            t0 = time.time()
+            res = engine.evaluate_pretrained(cfg, timing=timing, device=device)
+            eval_s = time.time() - t0
+            counts = launches()
+        finally:
+            for k in KERNELS:
+                setattr(wk, k, originals[k])
+
+        per_scene = timing["per_scene"]
+        for r in per_scene:
+            log(f"[data-eval] {r['fn']}: {r['points']} points, {r['voxels']} voxels, bucket "
+                f"{r['bucket']}; overflow {r['overflow']}; launches "
+                f"{ {k: r['launches'][k] for k in KERNELS} }; decode {decode_s[r['fn']]:.3f} s, "
+                f"collate {r['collate_s']:.3f} s, forward {r['forward_ms']:.1f} ms, host-eval "
+                f"{r['host_eval_s']:.3f} s; peak memory {r['peak_mem_gib']} GiB; "
+                f"{r['proposals']} proposals scored")
+        over = {r["fn"]: {k: v for k, v in r["overflow"].items() if v} for r in per_scene}
+        if any(over.values()):
+            raise AssertionError(f"data-eval: overflow {over}")
+        unlaunched = {r["fn"]: [k for k in KERNELS if r["launches"][k] <= 0] for r in per_scene}
+        if any(unlaunched.values()):
+            raise AssertionError(f"data-eval: clustering kernels not launched {unlaunched}")
+        if any(counts[k] for k in ALL_KERNELS if k not in KERNELS):
+            raise AssertionError(f"data-eval: a kernel off this path ran {counts}")
+        buckets = {r["bucket"] for r in per_scene}
+        cropped = [r["fn"] for r in per_scene if r["points"] < 3 * scenes[r["fn"]][0]]
+        if len(buckets) < 2 or len(cropped) != 1:
+            raise AssertionError(f"data-eval: buckets {buckets}, cropped scenes {cropped}")
+        if sum(r["proposals"] for r in per_scene) < 1:
+            raise AssertionError("data-eval: no proposal was scored")
+        metrics = {k: res.get(k) for k in ("mIoU", "mAcc", "allAcc", "mAP", "AP50", "AP25")}
+        if not all(v is not None and np.isfinite(v) and 0.0 <= v <= 1.0
+                   for v in metrics.values()):
+            raise AssertionError(f"data-eval: a metric is not finite in [0, 1]: {metrics}")
+        by_bucket = {}
+        for r in per_scene:
+            b = by_bucket.setdefault(r["bucket"], {"forward_ms": [], "peak_mem_gib": 0.0})
+            b["forward_ms"].append(round(r["forward_ms"], 3))
+            b["peak_mem_gib"] = max(b["peak_mem_gib"], r["peak_mem_gib"] or 0.0)
+        stages = {k: statistics.mean(decode_s[r["fn"]] if k == "decode_s" else r[k]
+                                     for r in per_scene)
+                  for k in ("decode_s", "collate_s", "host_eval_s")}
+        stages["forward_s"] = statistics.mean(r["forward_ms"] / 1e3 for r in per_scene)
+        log(f"[data-eval] evaluate_pretrained: {metrics}; {eval_s:.2f} s; s/scene by stage "
+            f"{ {k: round(v, 4) for k, v in stages.items()} }; by bucket (forward ms, peak "
+            f"GiB) {by_bucket}; timing "
+            f"{ {k: v for k, v in timing.items() if k != 'per_scene'} }; card {card}")
+
+        # the kernels against their plain versions at the eval shapes (these
+        # launches come after the counts were read)
+        kernel_rows = {}
+        for name in KERNELS:
+            args, kw = captured[name]
+            kern, plain = getattr(wk, name), getattr(wk, name + "_plain")
+            got, want = kern(*args, **kw), plain(*args, **kw)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            err = max_abs_err(got, want)
+            ms = time_kernel(lambda: kern(*args, **kw))
+            plain_ms = time_plain(lambda: plain(*args, **kw))
+            bms, by, detail = bound(name, args, got)
+            shp = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
+            kernel_rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                                     bound_by=by, launches=counts[name],
+                                     launches_per_scene=counts[name] / len(per_scene))
+            log(f"[data-eval] {name} at the last scene's shapes {shp}: exact; kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}; {detail}); "
+                f"{counts[name]} launches over {len(per_scene)} scenes")
+
+        # the submission of the test split, written under the working directory
+        cwd = os.getcwd()
+        os.chdir(root)
+        try:
+            t0 = time.time()
+            result_dir = engine.predict_testset(cfg, device=device)
+            sub = [os.path.join(root, result_dir, sc[0] + ".txt") for sc in DATA_TEST]
+            missing = [p for p in sub if not os.path.isfile(p)]
+            if missing:
+                raise AssertionError(f"data-eval: no submission file {missing}")
+            with open(sub[0]) as f:
+                n_inst = len(f.read().splitlines())
+            log(f"[data-eval] predict_testset: {result_dir}, {n_inst} instances in "
+                f"{os.path.basename(sub[0])}; {time.time() - t0:.2f} s")
+        finally:
+            os.chdir(cwd)
+
+        # the tiny config on the same files: the card's result equals the CPU's
+        t0 = time.time()
+        out = {}
+        for dev in (device, "cpu"):
+            tm = {}
+            out[dev] = (engine.evaluate_pretrained(tiny, timing=tm, device=dev),
+                        [r["proposals"] for r in tm["per_scene"]],
+                        [r["overflow"] for r in tm["per_scene"]])
+        (rg, pg, og), (rc, pc, oc_) = out[device], out["cpu"]
+        exact = ("mIoU", "mAcc", "allAcc")
+        if (rg.keys() != rc.keys() or any(rg[k] != rc[k] for k in exact) or pg != pc
+                or any(abs(rg[k] - rc[k]) > 1e-6 for k in rg if k not in exact)):
+            raise AssertionError(f"data-eval tiny: card {rg} {pg} != CPU {rc} {pc}")
+        if sum(pg) < 1 or any(v for o in og + oc_ for v in o.values()):
+            raise AssertionError(f"data-eval tiny: proposals {pg}, overflow {og} / {oc_}")
+        log(f"[data-eval] tiny config ({tiny.backbone_arch}, point cap "
+            f"{tiny.shapes.point_cap}) card == CPU: {rg}; proposals per "
+            f"scene {pg}; {time.time() - t0:.2f} s")
+    log(f"[data-eval] phase {time.time() - t_phase:.1f} s")
+    return kernel_rows
+
+
 def module_grad_norms(model, names):
     from pbnet_torch.parallel import train_step
 
@@ -619,6 +872,11 @@ def main():
     def reset_launches():
         wk.reset_launches()
         oc.reset_launches()
+
+    if sys.argv[1:] == ["--only", "data-eval"]:
+        data_eval_phase(card, reset_launches, launches)
+        log(f"[done] {time.time() - t_start:.1f} s (data-eval only: no result lines)")
+        return 0
 
     # ---- bench scene (shared by the capture and the main path) ----
     shapes = {"gather": synthetic.BENCH_SHAPES, "banded": synthetic.BANDED_SHAPES}
@@ -1019,6 +1277,12 @@ def main():
     train_launches = train_phases(card, reset_launches, launches)
     for k in KERNELS:
         rows[k]["launches_by_path"]["train"] = train_launches[k]
+
+    eval_rows = data_eval_phase(card, reset_launches, launches)
+    for k in ALL_KERNELS:
+        rows[k]["launches_by_path"]["data-eval"] = eval_rows[k]["launches"] if k in KERNELS else 0
+    for k in KERNELS:
+        rows[k]["data_eval"] = eval_rows[k]
     log(f"[done] {time.time() - t_start:.1f} s")
 
     print(card, flush=True)

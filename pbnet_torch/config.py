@@ -1,6 +1,8 @@
 """Static capacities and run configuration of the PyTorch port.
 
-A copy of ``pbnet_tpu/config.py:18-203`` (``StaticShapes`` and ``Config``):
+A copy of ``pbnet_tpu/config.py`` (``StaticShapes``, ``Config``,
+``test_config`` and the command-line flags of ``get_parser``, plus
+``--device``):
 the port keeps the same capacities, padding and overflow counters at every
 module boundary, so its outputs line up row for row with the JAX package's.
 The port builds no dense lookup grids; ``grid_extent`` only selects the same
@@ -9,6 +11,7 @@ stage-2/3 topology branch the JAX package takes (``models/pbnet.py``).
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
@@ -200,3 +203,54 @@ class Config:
         return tuple(
             self.shapes.scaled(f) for f in sorted(set(self.eval_bucket_scales))
         )
+
+
+def test_config() -> Config:
+    """Eval defaults (PBNet config/config_test.py): epochs=128,
+    cluster_epoch=-1 so the instance branch is always active, batch 1,
+    pretrain dir ./pretrain/."""
+    return Config(
+        task="test",
+        epochs=128,
+        logpath="./pretrain/",
+        max_crop_p=400_000,
+        batch_size=1,
+        lr=1e-4,
+        cluster_epoch=-1,
+    )
+
+
+def build_parser(test: bool = False) -> argparse.ArgumentParser:
+    """The JAX package's flags (one per ``Config`` field, its defaults from
+    ``test_config`` or ``Config``) and ``--device`` (CUDA unless given)."""
+    base = test_config() if test else Config()
+    p = argparse.ArgumentParser(description="3D instance segmentation (PyTorch)")
+    for f in dataclasses.fields(Config):
+        if f.name in ("shapes", "dist", "world_size"):
+            continue
+        default = getattr(base, f.name)
+        if f.type in ("bool", bool):
+            p.add_argument(f"--{f.name}", type=lambda s: s.lower() in ("1", "true", "yes"),
+                           default=default)
+        elif isinstance(default, tuple):
+            # compound flags (e.g. --fix_module D_Unet,linear_sem) parse as a
+            # comma-separated list, not char-wise tuple("abc"), each item of
+            # the default's type (--eval_bucket_scales 0.5,1.0 gives floats;
+            # the JAX package's parser leaves them strings)
+            item = type(default[0]) if default else str
+            p.add_argument(f"--{f.name}", default=default,
+                           type=lambda s, t=item: tuple(t(x) for x in s.split(",") if x))
+        else:
+            p.add_argument(f"--{f.name}", type=type(default), default=default)
+    p.add_argument("--device", default=None,
+                   help="torch device to run on (default: cuda; 'cpu' for the plain path)")
+    return p
+
+
+def get_parser(test: bool = False, argv=None) -> tuple[Config, Optional[str]]:
+    """(Config, device) from the command line, as the JAX package's
+    ``get_parser`` gives its Config."""
+    args = vars(build_parser(test).parse_args(argv))
+    device = args.pop("device")
+    base = test_config() if test else Config()
+    return base.replace(**args), device

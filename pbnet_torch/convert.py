@@ -75,37 +75,52 @@ def _params_by_name(tree) -> dict[str, torch.Tensor]:
             for name, val in (_param_name(p, v) for p, v in _leaves(tree))}
 
 
+def _field(node, name):
+    """A field of an optax state node: a NamedTuple's attribute, or the key
+    of the same name in the mapping a JAX checkpoint restores it as."""
+    return node[name] if isinstance(node, Mapping) else getattr(node, name)
+
+
+def _has_fields(node, fields) -> bool:
+    if isinstance(node, Mapping):
+        return all(f in node for f in fields)
+    return all(hasattr(node, f) for f in fields)
+
+
 def _find_state(state, fields):
-    """The first node of an optax state (a NamedTuple, or a tuple of them
-    for a chain) that has every attribute in ``fields``."""
-    if all(hasattr(state, f) for f in fields):
+    """The first node of an optax state that has every field in ``fields``:
+    the state itself, or a member of a chain (a tuple of NamedTuples, or the
+    ``{"0": ..., "1": ...}`` mapping a JAX checkpoint restores it as)."""
+    if _has_fields(state, fields):
         return state
-    if isinstance(state, (tuple, list)):
-        for s in state:
-            found = _find_state(s, fields)
-            if found is not None:
-                return found
+    members = state.values() if isinstance(state, Mapping) else (
+        state if isinstance(state, (tuple, list)) else ())
+    for s in members:
+        found = _find_state(s, fields)
+        if found is not None:
+            return found
     return None
 
 
 def optimizer_state_from_optax(opt_state, model: torch.nn.Module,
                                optimizer: torch.optim.Optimizer) -> dict:
     """A ``optimizer.load_state_dict`` mapping from the JAX package's optax
-    state (leaves as numpy arrays).  ``optimizer`` runs over
+    state (leaves as numpy arrays; NamedTuples, or the mappings a JAX
+    checkpoint file restores them as).  ``optimizer`` runs over
     ``model.parameters()`` in order (``train_step.make_optimizer``): Adam or
     AdamW takes ``count``, ``mu`` and ``nu`` as its ``step``, ``exp_avg`` and
     ``exp_avg_sq``; ``OptaxSGD`` takes ``trace``."""
     names = [n for n, _ in model.named_parameters()]
     adam = _find_state(opt_state, ("count", "mu", "nu"))
     if adam is not None:
-        mu, nu = _params_by_name(adam.mu), _params_by_name(adam.nu)
-        step = torch.tensor(float(np.asarray(adam.count)), dtype=torch.float32)
+        mu, nu = _params_by_name(_field(adam, "mu")), _params_by_name(_field(adam, "nu"))
+        step = torch.tensor(float(np.asarray(_field(adam, "count"))), dtype=torch.float32)
         per = [{"step": step.clone(), "exp_avg": mu[n], "exp_avg_sq": nu[n]} for n in names]
     else:
         tr = _find_state(opt_state, ("trace",))
         if tr is None:
             raise KeyError(f"no Adam or trace state in {type(opt_state).__name__}")
-        trace = _params_by_name(tr.trace)
+        trace = _params_by_name(_field(tr, "trace"))
         per = [{"trace": trace[n]} for n in names]
     sd = optimizer.state_dict()
     order = [i for g in sd["param_groups"] for i in g["params"]]

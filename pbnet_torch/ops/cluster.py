@@ -39,6 +39,8 @@ import torch
 from . import window_kernels as wk
 
 INF_I32 = 2**31 - 1
+# elements of one row block of the exact 1-NN pass (2**26 f32: 256 MiB)
+EXACT_BLOCK_ELEMS = 2**26
 
 
 class ClusterResult(NamedTuple):
@@ -315,24 +317,31 @@ def binary_cluster(
     bound = (margin * margin) / _f32(3.0, dev)
     proven = (found_band & (best_d2 <= bound)).reshape(npad)[:n]
 
-    # exact pass for the unproven rows (compacted, static cap)
+    # exact pass for the unproven rows (compacted, static cap).  Only the
+    # live rows are computed, in blocks of rows: at ScanNet caps one
+    # (F x npad) distance block would take tens of GB of device memory
     F = min(nn_exact_cap or max(256, npad // 32), n)
     need_f = need & ~proven
     order_key = torch.where(need_f, 0, 1).to(torch.int32)
     f_rows = torch.sort(order_key, stable=True).indices[:F]
     f_live = order_key[f_rows] == 0
     nn_overflow = torch.clamp(need_f.sum(dtype=torch.int32) - F, min=0).to(torch.int32)
-    q = orig_s[f_rows]
-    q_g = g_s[f_rows]
-    d2 = wk.sq_dist(q[:, 0:1], q[:, 1:2], q[:, 2:3],
-                orig_p[None, :, 0], orig_p[None, :, 1], orig_p[None, :, 2])
-    mok = assigned_p[None, :] & (g_p[None, :] == q_g[:, None])
-    d2m = torch.where(mok, d2, inf)
+    cid_exact = torch.full((F,), -1, dtype=torch.int32, device=dev)
     cols = torch.arange(npad, device=dev)
-    # LAST minimum in sorted order (the reference's `dist <= best` scan)
-    j2 = torch.where(d2m == d2m.amin(1, keepdim=True), cols[None], -1).amax(1)
-    found2 = assigned_p[j2] & (g_p[j2] == q_g)
-    cid_exact = torch.where(found2, cid_p[j2], -1)
+    n_live = int(f_live.sum())
+    block = max(1, EXACT_BLOCK_ELEMS // npad)
+    for r0 in range(0, n_live, block):
+        rows = f_rows[r0:min(r0 + block, n_live)]
+        q = orig_s[rows]
+        q_g = g_s[rows]
+        d2 = wk.sq_dist(q[:, 0:1], q[:, 1:2], q[:, 2:3],
+                        orig_p[None, :, 0], orig_p[None, :, 1], orig_p[None, :, 2])
+        mok = assigned_p[None, :] & (g_p[None, :] == q_g[:, None])
+        d2m = torch.where(mok, d2, inf)
+        # LAST minimum in sorted order (the reference's `dist <= best` scan)
+        j2 = torch.where(d2m == d2m.amin(1, keepdim=True), cols[None], -1).amax(1)
+        found2 = assigned_p[j2] & (g_p[j2] == q_g)
+        cid_exact[r0:r0 + rows.shape[0]] = torch.where(found2, cid_p[j2], -1)
 
     cid_final_s = torch.where(need & found_band_f, cid_band, cid_filtered)
     ext = torch.cat([cid_final_s, torch.full((1,), -1, dtype=torch.int32, device=dev)])

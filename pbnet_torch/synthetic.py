@@ -15,7 +15,9 @@ Copies from the JAX package's entry scripts (which the port does not import):
   scene (``__graft_entry__.py:8-96``);
 * :func:`bench_train_batch` — the bench scene with the labels a train step
   reads (``bench.py:361-371``), and :class:`SyntheticDataset`, a tiny
-  in-memory dataset with the JAX package's training interface.
+  in-memory dataset with the JAX package's training interface;
+* :func:`write_scannet_scene` — a room-like triangulated mesh written in
+  ScanNet's file layout, for the data path (decode -> Dataset -> evaluate).
 
 Everything is numpy, made from ``np.random.RandomState`` seeds.
 """
@@ -23,11 +25,14 @@ Everything is numpy, made from ``np.random.RandomState`` seeds.
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 
 import numpy as np
 
 from .config import StaticShapes
 from .core.quantize import sparse_quantize_np
+from .data.ply import write_ply_mesh
 from .tools.eval_protocol import SEMANTIC_LABEL_IDX
 
 # bench.py's capacities, fitted to the bench scene (no overflow there)
@@ -304,3 +309,189 @@ class SyntheticDataset:
     def train_loader(self, epoch: int):
         for ids in self.train_epoch_ids(epoch):
             yield self.train_batch(ids)
+
+
+def _grid_patch(origin, u, v, nu: int, nv: int):
+    """A triangulated nu x nv vertex grid spanning ``origin + [0,1]u +
+    [0,1]v``: (vertices (nu*nv, 3), faces (2(nu-1)(nv-1), 3))."""
+    a, b = np.meshgrid(np.linspace(0, 1, nu), np.linspace(0, 1, nv), indexing="ij")
+    xyz = (np.asarray(origin, np.float64) + a.reshape(-1, 1) * np.asarray(u, np.float64)
+           + b.reshape(-1, 1) * np.asarray(v, np.float64))
+    i, j = np.meshgrid(np.arange(nu - 1), np.arange(nv - 1), indexing="ij")
+    q = (i * nv + j).ravel()
+    faces = np.concatenate([np.stack([q, q + nv, q + 1], 1),
+                            np.stack([q + 1, q + nv, q + nv + 1], 1)])
+    return xyz, faces
+
+
+# NYU40 ids of the object classes write_scannet_scene draws from (cabinet,
+# bed, chair, sofa, table, bookshelf, counter, desk)
+OBJECT_NYU40 = (3, 4, 5, 6, 7, 10, 12, 14)
+
+
+def write_scannet_scene(root, name: str, rng, n_vertices: int, n_objects: int = 8,
+                        spacing: float = 0.01, wall_height: float = 1.2,
+                        object_labels=OBJECT_NYU40) -> int:
+    """Write a room-like triangulated mesh in ScanNet's file layout under
+    ``root``: ``<name>_vh_clean_2.ply``, ``.labels.ply`` (NYU40 ids),
+    ``_vh_clean_2.0.010000.segs.json`` and ``.aggregation.json``.
+
+    A square floor (NYU40 2) and two walls (NYU40 1) sized so that the mesh
+    holds about ``n_vertices`` vertices at ``spacing`` (about 1 cm: a 2 cm
+    voxel then holds several vertices, about 0.25 voxels per vertex), and
+    ``n_objects`` open boxes (four sides and a top, 14-20 cm on a side:
+    1,100-2,200 vertices each) standing 6 cm above the floor, so that no
+    object touches the floor or another within the 4 cm clustering radius;
+    labels cycle through ``object_labels``.  Floor and walls are dark and
+    objects bright (red 35-45 against 215-255, which ``color_oracle``
+    reads).  The
+    over-segmentation cuts every flat face into 0.2 m tiles; each object is
+    one aggregation group of its tiles.  Returns the vertex count."""
+    os.makedirs(root, exist_ok=True)
+    sizes = 0.14 + 0.06 * rng.rand(n_objects, 3)
+    obj_area = float((2 * sizes[:, 2] * (sizes[:, 0] + sizes[:, 1]) + sizes[:, 0] * sizes[:, 1]).sum())
+    # floor L^2 + walls 2 L h + objects = n_vertices * spacing^2
+    area = n_vertices * spacing ** 2 - obj_area
+    if area <= 0:
+        raise ValueError(f"{n_vertices} vertices cannot hold {n_objects} objects")
+    L = -wall_height + (wall_height ** 2 + area) ** 0.5
+    cols = int(np.ceil(np.sqrt(n_objects)))
+    cell = L / cols
+    if sizes[:, :2].max() + 0.1 > cell:
+        raise ValueError(f"a {L:.2f} m room is too small for {n_objects} objects")
+
+    verts, faces, labels, segs, groups = [], [], [], [], []
+    seg_base = 0
+
+    def add(origin, u, v, label, obj=None):
+        nonlocal seg_base
+        nu = max(2, int(round(np.linalg.norm(u) / spacing)) + 1)
+        nv = max(2, int(round(np.linalg.norm(v) / spacing)) + 1)
+        xyz, f = _grid_patch(origin, u, v, nu, nv)
+        a, b = np.meshgrid(np.arange(nu), np.arange(nv), indexing="ij")
+        tiles_v = -(-nv // 20)
+        tile = (a.ravel() // 20) * tiles_v + b.ravel() // 20
+        n0 = sum(len(x) for x in verts)
+        verts.append(xyz)
+        faces.append(f + n0)
+        labels.append(np.full(len(xyz), label, np.uint16))
+        segs.append(seg_base + tile)
+        if obj is not None:
+            groups[obj]["segments"] += [int(t) for t in np.unique(seg_base + tile)]
+        seg_base += int(tile.max()) + 1
+
+    h = wall_height
+    add((0, 0, 0), (L, 0, 0), (0, L, 0), 2)
+    add((0, 0, 0), (L, 0, 0), (0, 0, h), 1)
+    add((0, 0, 0), (0, L, 0), (0, 0, h), 1)
+    for i, (sx, sy, sz) in enumerate(sizes):
+        label = int(object_labels[i % len(object_labels)])
+        groups.append({"id": i, "objectId": i, "label": f"object{label}", "segments": []})
+        cx = (i % cols + 0.5) * cell + (rng.rand() - 0.5) * (cell - sx - 0.1)
+        cy = (i // cols + 0.5) * cell + (rng.rand() - 0.5) * (cell - sy - 0.1)
+        x0, y0, z0 = cx - sx / 2, cy - sy / 2, 0.06
+        add((x0, y0, z0 + sz), (sx, 0, 0), (0, sy, 0), label, i)
+        add((x0, y0, z0), (sx, 0, 0), (0, 0, sz), label, i)
+        add((x0, y0 + sy, z0), (sx, 0, 0), (0, 0, sz), label, i)
+        add((x0, y0, z0), (0, sy, 0), (0, 0, sz), label, i)
+        add((x0 + sx, y0, z0), (0, sy, 0), (0, 0, sz), label, i)
+    xyz = np.concatenate(verts).astype(np.float32)
+    xyz += (rng.randn(*xyz.shape) * 0.001).astype(np.float32)
+    faces = np.concatenate(faces)
+    labels = np.concatenate(labels)
+    seg = np.concatenate(segs)
+    shade = np.where(labels[:, None] <= 2, 40, 220 + 4 * (labels[:, None] % 8))
+    rgb = np.clip(shade + rng.randint(-5, 6, (len(xyz), 3)), 0, 255).astype(np.uint8)
+
+    base = os.path.join(root, name)
+    write_ply_mesh(base + "_vh_clean_2.ply", xyz, rgb, faces)
+    write_ply_mesh(base + "_vh_clean_2.labels.ply", xyz, rgb, faces, labels)
+    with open(base + "_vh_clean_2.0.010000.segs.json", "w") as f:
+        json.dump({"sceneId": name, "segIndices": seg.tolist()}, f)
+    with open(base + ".aggregation.json", "w") as f:
+        json.dump({"sceneId": name, "segGroups": groups}, f)
+    return len(xyz)
+
+
+def _identity_norm(bn) -> None:
+    bn.running_mean.zero_()
+    bn.running_var.fill_(1.0)
+    bn.weight.data.fill_(1.0)
+    bn.bias.data.zero_()
+
+
+def _pass_through(unet, pairs) -> None:
+    """Set ``unet``'s weights (in place) so that its output channel ``o`` is
+    relu(input channel ``i``) at every voxel, for each ``(i, o)`` of
+    ``pairs``, and 0 in every other channel: the stem copies the inputs at
+    its centre offset, the last decoder stage's blocks pass only the stem's
+    skip through (their conv branches scaled to zero) and the final layer
+    is the identity on the stem's channels."""
+    from .nn.minkunet import MinkUNetBase
+
+    width = unet.conv0.kernel.shape[2]  # the stem's width: the skip concatenated last
+    k = unet.conv0.kernel
+    k.zero_()
+    for i, o in pairs:
+        k[k.shape[0] // 2, i, o] = 1.0  # the centre offset of the k=5 stem
+    _identity_norm(unet.bn0)
+    last = 8 if isinstance(unet, MinkUNetBase) else 2
+    for b in range(unet.layers[-1]):
+        blk = getattr(unet, f"block{last}_{b}")
+        blk.norm2.weight.zero_()
+        blk.norm2.bias.zero_()
+        if blk.downsample_conv is not None:
+            w = blk.downsample_conv.weight
+            w.zero_()
+            for c in range(width):
+                w[c, w.shape[1] - width + c] = 1.0
+            _identity_norm(blk.downsample_norm)
+    unet.final.weight.zero_()
+    unet.final.bias.zero_()
+    for c in range(width):
+        unet.final.weight[c, c] = 1.0
+
+
+def _read_channel0(head, out: int, gain: float, cut: float) -> None:
+    """An MLP head whose output ``out`` is ``gain * x0 - cut`` for a
+    non-negative input channel 0, every other output 0."""
+    head.linear1.weight.zero_()
+    head.linear1.weight[0, 0] = 1.0
+    _identity_norm(head.norm)
+    head.linear2.weight.zero_()
+    head.linear2.bias.zero_()
+    head.linear2.weight[out, 0] = gain
+    head.linear2.bias[out] = -cut
+
+
+def color_oracle(model, sem_class: int, gain: float = 20.0, cut: float = 3.0,
+                 lift: float = 20.0) -> None:
+    """Set a few of ``model``'s weights (in place) so that, on scenes from
+    :func:`write_scannet_scene`, stage 1 predicts ``sem_class`` on the bright
+    objects and class 0 on the dark floor and walls, with zero offsets;
+    stage 2 keeps the points of each proposal's own cluster and drops those
+    of its neighbour clusters; stage 3 scores every proposal near 1.
+
+    The rest of the weights stay as they were (random).  The backbone
+    passes the red channel through (``_pass_through``) and the semantic
+    head turns it into the logit ``gain * relu(red) - cut`` for
+    ``sem_class`` (0 for every other class); the offset head is zeroed.  The
+    D_Unet passes the local scene's weight channel (1 on the own cluster's
+    points, at most 0.5 on a neighbour's) and the mask head's logit is
+    ``2 * gain * (weight - 0.75)``; the IoU head's output bias is raised by
+    ``lift``.  Random weights alone predict no class on enough points to
+    cluster, a semantic head biased to one class makes floor and walls
+    foreground too (which overflows the clustering band and the local-scene
+    budget at ScanNet scale), and a mask head that keeps every local-scene
+    point merges each proposal with its neighbours."""
+    import torch
+
+    with torch.no_grad():
+        _pass_through(model.MEUnet, [(c, c) for c in range(model.MEUnet.conv0.kernel.shape[1])])
+        _read_channel0(model.linear_sem, sem_class, gain, cut)
+        model.linear_offset.linear2.weight.zero_()
+        model.linear_offset.linear2.bias.zero_()
+        # the local scene's features are [32 point features | class score | weight]
+        _pass_through(model.D_Unet, [(model.D_Unet.conv0.kernel.shape[1] - 1, 0)])
+        _read_channel0(model.linear_binary, 0, 2 * gain, 1.5 * gain)
+        model.linear_IOU.linear2.bias += lift

@@ -6,7 +6,9 @@
   a crash leaves no torn file; the previous epoch's file is pruned unless
   ``epoch % save_freq == 0``;
 * ``checkpoint_restore``: an explicit file or the newest ``*.ckpt``, epoch
-  parsed from the file name.
+  parsed from the file name.  It reads the port's files (``torch.load`` with
+  ``weights_only``) and the JAX package's (a pickle of flax msgpack bytes,
+  read by ``flax_checkpoint`` and converted by ``convert``).
 """
 
 from __future__ import annotations
@@ -16,8 +18,12 @@ import logging
 import os
 import sys
 import time
+import zipfile
 
 import torch
+
+from .. import convert
+from . import flax_checkpoint
 
 
 def create_logger(log_file: str) -> logging.Logger:
@@ -59,17 +65,42 @@ def checkpoint_save(state: dict, logpath: str, epoch: int, save_freq: int = 16) 
     return fname
 
 
-def checkpoint_restore(logpath: str, pretrain_file: str = "", map_location=None):
+def _from_jax(trees: dict, template: dict) -> dict:
+    """The port's state for a JAX-package checkpoint's trees: ``model`` from
+    ``params`` and ``batch_stats``, ``optimizer`` from ``opt_state`` (which
+    needs the template's model and optimizer)."""
+    state = {}
+    if "model" in template and "params" in trees:
+        state["model"] = convert.state_dict_from_jax(
+            {k: trees[k] for k in ("params", "batch_stats") if k in trees})
+    if "optimizer" in template and "opt_state" in trees:
+        state["optimizer"] = convert.optimizer_state_from_optax(
+            trees["opt_state"], template["model"], template["optimizer"])
+    return state
+
+
+def checkpoint_restore(template: dict, logpath: str, pretrain_file: str = "",
+                       map_location=None):
     """(state or None, start_epoch, restored_file): start_epoch is the
     checkpoint's epoch + 1, or 1 when there is none (epochs count from 1).
-    Loads tensors and plain containers only (``weights_only``)."""
+
+    ``template`` maps ``"model"`` to the model and, where one is restored,
+    ``"optimizer"`` to its optimizer.  ``state`` holds the state dicts of
+    those keys the file has; a key it lacks is left out, so the caller keeps
+    what it built (the JAX package takes it from its template).  A torch
+    file loads tensors and plain containers only (``weights_only``); any
+    other file must be a JAX-package checkpoint."""
     fname = pretrain_file
     if not fname:
         cands = sorted(glob.glob(os.path.join(logpath, "*.ckpt")))
         fname = cands[-1] if cands else ""
     if not fname or not os.path.isfile(fname):
         return None, 1, ""
-    state = torch.load(fname, map_location=map_location, weights_only=True)
+    if zipfile.is_zipfile(fname):  # torch.save's format
+        saved = torch.load(fname, map_location=map_location, weights_only=True)
+        state = {k: v for k, v in saved.items() if k in template}
+    else:
+        state = _from_jax(flax_checkpoint.read_checkpoint(fname), template)
     try:
         epoch = int(os.path.basename(fname).split(".")[0])
     except ValueError:

@@ -80,6 +80,25 @@ def test_matches_jax_caps(rng, band, chunk, nn_exact_cap, prop_iters):
     assert_same(ref, got)
 
 
+def test_exact_pass_row_blocks_match_jax(rng, monkeypatch):
+    """The exact 1-NN pass one row per block (the block size ScanNet caps
+    need on the card, taken to its limit) gives JAX's result."""
+    monkeypatch.setattr(tcl, "EXACT_BLOCK_ELEMS", 1)
+    blocks = []
+    sq_dist = tcl.wk.sq_dist
+
+    def spy(*a):
+        blocks.append(tuple(a[0].shape))
+        return sq_dist(*a)
+
+    monkeypatch.setattr(tcl.wk, "sq_dist", spy)
+    args, _ = padded_scene(rng)
+    ref, got = run_both(args, radius=0.1, min_pts=10, para_f=0.05, cluster_cap=32,
+                        band=64, chunk=32, nn_exact_cap=64, prop_iters=10)
+    assert_same(ref, got)
+    assert blocks.count((1, 1)) > 1  # the exact pass ran, one row per block
+
+
 def test_no_clusters_when_sparse(rng):
     n = 64
     shifted = (rng.rand(n, 3) * 10).astype(np.float32)

@@ -9,6 +9,11 @@ TF32 off); two launches on the same inputs must equal bit for bit (the slot
 split adds its partial tiles in a fixed order).  Every other kernel must
 equal its plain version exactly.
 
+The data path on the card: ``vertex_normals`` within 1e-6 of the CPU's,
+and ``engine.evaluate`` over decoded ScanNet-layout scenes (colour-oracle
+weights, the Mini_Unet trio at small caps) equal to the CPU's: mIoU, mAcc,
+allAcc and per-scene proposal counts exactly, the AP keys within 1e-6.
+
 Training on the card: the gather conv's backward (the transposed-map gather
 and its GEMMs) and train-mode BN against the same code on the CPU, within
 1e-3 of each gradient's largest magnitude (the index backwards on the card
@@ -23,15 +28,22 @@ has only the port's dependencies:
 (``--noconftest``: tests/conftest.py configures JAX for the parity tests.)
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
+from pbnet_torch import engine, synthetic
+from pbnet_torch.config import Config, StaticShapes
+from pbnet_torch.data import decode_scannet
+from pbnet_torch.data.dataset import Dataset
 from pbnet_torch.models.pbnet import COUNT_MEAN
 from pbnet_torch.nn import modules as nm
 from pbnet_torch.nn import onehot_conv as oc
 from pbnet_torch.nn import sparse_ops as so
 from pbnet_torch.ops import cluster as cl
+from pbnet_torch.ops import normals
 from pbnet_torch.ops import window_kernels as wk
 
 pytestmark = pytest.mark.cuda
@@ -464,3 +476,57 @@ def test_plan_refused_under_grad(dev):
     with torch.no_grad():
         so.gather_conv(feats, km, w, valid, plan=plan)
     assert oc.LAUNCHES["onehot_conv"] == before + 1
+
+
+def test_vertex_normals_match_cpu(dev):
+    rng = np.random.RandomState(7)
+    a, b = np.meshgrid(np.arange(40), np.arange(30), indexing="ij")
+    xyz = np.stack([a.ravel() * 0.01, b.ravel() * 0.01,
+                    0.05 * np.sin(a.ravel() * 0.3)], 1).astype(np.float32)
+    xyz += rng.randn(*xyz.shape).astype(np.float32) * 1e-3
+    q = (a[:-1, :-1] * 30 + b[:-1, :-1]).ravel()
+    faces = np.concatenate([np.stack([q, q + 30, q + 1], 1), np.stack([q + 1, q + 30, q + 31], 1)])
+    x, f = torch.from_numpy(xyz), torch.from_numpy(faces)
+    want = normals.vertex_normals(x, f)
+    got = normals.vertex_normals(x.to(dev), f.to(dev))
+    assert got.device.type == "cuda"
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(want.numpy(), normals.vertex_normals_np(xyz, faces), rtol=0,
+                               atol=1e-6)
+
+
+def test_evaluate_on_card_equals_cpu(dev, tmp_path):
+    root = str(tmp_path)
+    scans, npy = os.path.join(root, "scans"), os.path.join(root, "npy")
+    os.makedirs(npy)
+    names = ["scene0000_00", "scene0001_00"]
+    for i, name in enumerate(names):
+        synthetic.write_scannet_scene(scans, name, np.random.RandomState(i), 3000 + 600 * i,
+                                      n_objects=1, wall_height=0.1, object_labels=(3,))
+        decode_scannet.decode_scene(os.path.join(scans, name + "_vh_clean_2.ply"), npy, None)
+    with open(os.path.join(root, "scannetv2_val.txt"), "w") as fh:
+        fh.write("".join(n + "\n" for n in names))
+    decode_scannet.write_val_gt(npy, names, os.path.join(root, "val_gt"))
+    shapes = StaticShapes(point_cap=12288, voxel_caps=(4096, 2048), cluster_cap=16,
+                          local_point_cap=16384, local_voxel_caps=(6144, 3072),
+                          score_voxel_caps=(6144, 3072), instance_cap=16, cluster_band=2048)
+    cfg = Config(shapes=shapes, data_root=root, num_works=0, eval_bucket_scales=(1.0,),
+                 cluster_epoch=-1, backbone_arch="Mini_Unet", dunet_arch="Mini_Unet",
+                 score_arch="Mini_Unet")
+    model = engine.build_model(cfg, "cpu")
+    synthetic.color_oracle(model, 2)  # NYU40 'cabinet', every object's class
+    out = {}
+    for d in ("cpu", dev):
+        m = engine.build_model(cfg, d)
+        m.load_state_dict(model.state_dict())
+        timing = {}
+        res = engine.evaluate(cfg, m, Dataset(cfg), epoch=1, timing=timing)
+        out[str(d)] = (res, [r["proposals"] for r in timing["per_scene"]])
+    (rg, pg), (rc, pc) = out[str(dev)], out["cpu"]
+    assert pg == pc and sum(pc) > 0
+    assert rg.keys() == rc.keys() and "mAP" in rc
+    for k in rc:
+        if k in ("mIoU", "mAcc", "allAcc"):
+            assert rg[k] == rc[k], k
+        else:
+            assert abs(rg[k] - rc[k]) <= 1e-6, k

@@ -1,10 +1,13 @@
 """The port stands alone: no JAX, no pbnet_tpu, no silent CPU fallback.
 
-* Importing pbnet_torch (every module, the eval and training ones included),
-  building and running a model with banded convs and running one CPU train
-  step leaves ``jax``, ``flax``, ``optax`` and ``pbnet_tpu`` out of
-  ``sys.modules`` (checked in a fresh subprocess, since this test process
-  imports JAX for the parity tests).
+* Importing pbnet_torch (every module: the eval, training, data and
+  checkpoint ones and the command line included), building and running a
+  model with banded convs, running one CPU train step, segmenting a mesh and
+  reading a JAX-package checkpoint leaves ``jax``, ``flax``, ``optax``,
+  ``msgpack`` and ``pbnet_tpu`` out of ``sys.modules`` (checked in a fresh
+  subprocess, since this test process imports JAX for the parity tests).
+  The segmentator library it loads is the port's own build, under
+  ``pbnet_torch/_build/``.
 * No file of the port, nor chip_smoke.py, imports them.
 * An entry point called without ``device`` on a machine without CUDA raises.
 * chip_smoke.py fails, printing no result, without a GPU and outside a
@@ -12,12 +15,14 @@
 """
 
 import os
+import pickle
 import re
 import shutil
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -26,7 +31,7 @@ from pbnet_torch.models.pbnet import PBNet
 from pbnet_torch.synthetic import GRAFT_SHAPES
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|pbnet_tpu)\b", re.M)
+FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|msgpack|pbnet_tpu)\b", re.M)
 
 
 def _env(**kw):
@@ -35,10 +40,20 @@ def _env(**kw):
     return env
 
 
-def test_import_and_run_leave_jax_out():
+def test_import_and_run_leave_jax_out(tmp_path):
+    import flax.serialization
+
+    ckpt = tmp_path / "000000003.ckpt"
+    with open(ckpt, "wb") as f:
+        pickle.dump({"params": flax.serialization.to_bytes({"w": np.arange(4.0)})}, f)
     code = (
         "import sys, numpy as np\n"
         "import pbnet_torch\n"
+        "from pbnet_torch import cli\n"
+        "from pbnet_torch.data import augment, dataset, decode_scannet, ply\n"
+        "from pbnet_torch.native import segmentator\n"
+        "from pbnet_torch.ops import normals\n"
+        "from pbnet_torch.tools import flax_checkpoint\n"
         "from pbnet_torch import convert, synthetic\n"
         "from pbnet_torch.models.pbnet import PBNet, batch_to_device\n"
         "from pbnet_torch import eval_pipeline\n"
@@ -62,15 +77,23 @@ def test_import_and_run_leave_jax_out():
         "b = batch_to_device(synthetic.synthetic_batch(sh, np.random.RandomState(1)), 'cpu')\n"
         "aux = train_step.make_train_step(m, opt, cfg, with_instances=True)(b, 1e-3)\n"
         "assert np.isfinite(float(aux['loss'])) and float(aux['grad_norm']) > 0\n"
+        "xyz = np.random.RandomState(0).rand(30, 3).astype(np.float32)\n"
+        "faces = np.stack([np.arange(28), np.arange(1, 29), np.arange(2, 30)], 1)\n"
+        "assert segmentator.segment_mesh(xyz, faces).shape == (30,)\n"
+        "tree = flax_checkpoint.read_checkpoint(sys.argv[1])\n"
+        "assert (tree['params']['w'] == np.arange(4.0)).all()\n"
         "bad = sorted(k for k in sys.modules\n"
-        "             if k.split('.')[0] in ('jax', 'flax', 'optax', 'pbnet_tpu'))\n"
+        "             if k.split('.')[0] in ('jax', 'flax', 'optax', 'msgpack', 'pbnet_tpu'))\n"
         "assert not bad, bad\n"
+        "print('library', segmentator.loaded_library())\n"
         "print('clean')\n"
     )
-    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
+    r = subprocess.run([sys.executable, "-c", code, str(ckpt)], cwd=REPO, env=_env(),
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert "clean" in r.stdout
+    lib = Path(r.stdout.split("library ", 1)[1].split()[0])
+    assert lib.parent == REPO / "pbnet_torch" / "_build" and lib.name.startswith("segmentator-")
 
 
 def test_no_jax_imports_in_port_sources():
