@@ -123,8 +123,47 @@ exits non-zero — no phase catches its own failure):
              tiny config ``TINY_EVAL`` evaluates the same files on the card
              and on the CPU: mIoU, mAcc, allAcc and the per-scene proposal
              counts equal, every other key within 1e-6.
-             ``python3 chip_smoke.py --only data-eval`` runs the build and
-             this phase alone and prints no result lines.
+13. ddp       data parallelism.  (a) NCCL at world size 1: one full-phase
+             train step at full width on the bench scene (f32 conv
+             operands) through the distributed step (SyncBN and the
+             gradient average over the group) against the plain step from
+             the same weights and batch,
+             under phase 8's gates (``hold_step``; the gradient and
+             parameter norms held as the gradients are, ``REF_MODEL_TOL``:
+             at full width in bf16 the two steps' gradient norms were
+             1.9e-4 apart in relative terms).
+             (b) Two gloo ranks on
+             the one card (NCCL refuses two ranks on one device) at full
+             width: rank 0 the bench scene, rank 1 its flipped and rotated
+             copy (``augment``, seed 1; caps 1.25x: rotated, the scene takes
+             14% more voxels at stride 4); Adam, 1 warm-up and ``DDP_STEPS`` timed steps of
+             the full phase.  Gates: parameters and BN statistics
+             bit-identical across the ranks after every step, each of
+             B1-B4 launched in every step of each rank, zero overflow,
+             finite losses; median ms/step and peak memory per rank (both
+             ranks share the card).  (c) The tiny two-rank step (phase 8's
+             scene, rank r seeded r) on the card against the same two ranks
+             on the CPU, under phase 8's gates.
+14. bottleneck
+             PBNet with the MinkUNet50 backbone (D_Unet 14A, ScoreNet 34C) on
+             the bench scene, gather and banded, 2 requests each in turns:
+             [main]'s gates (every kernel of the path launched, zero
+             overflow, banded ids equal to gather ids, scores within
+             ``SCORE_ATOL``).  B6 at every shape it launches (new ones
+             marked) against its plain version within ``B6_RTOL``, timed
+             beside ``b6_bound`` and the gather conv.  Card == CPU on the
+             tiny scene as in phase 4.
+15. resnet    ResNet50 and ResFieldNet14 on two small rooms (5 mm voxels): an
+             eval forward and a train forward and backward, card against
+             CPU, f32 conv operands: logits within 1e-3 of their largest
+             magnitude; gradients under phase 8's gates (the head's
+             instance norm over a few voxels per room amplifies rounding:
+             at 1 cm ResNet50's gradients moved by 1.2e-2 in relative L2).
+``python3 chip_smoke.py --only <phase>`` (data-eval, ddp, bottleneck,
+resnet) runs the build and that phase alone and prints no result lines.
+``--only ddp-cards``, on a machine with several cards (not in the default
+run): every card one NCCL rank through (b)'s full-width step and gates,
+then ``engine.train`` over the same ranks with a resume.
 
 TF32 is switched off for matmuls and cuDNN: the port's f32 GEMMs run in full
 f32, so the CPU comparisons hold at the stated tolerances.
@@ -139,7 +178,11 @@ shape's time times its launches in one request, summed (``shapes`` lists
 them).  ``launches_by_path["train"]`` counts B1-B4 over the 5 timed
 full-phase train steps, ``launches_by_path["data-eval"]`` over the
 data-eval phase's evaluate run (three scenes), whose own kernel check is
-under ``data_eval``.  The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
+under ``data_eval``; ``["ddp"]`` counts B1-B4 on rank 0 over the timed
+two-rank steps, ``["bottleneck"]`` every kernel over the bottleneck
+phase's four requests; B6's ``shapes`` adds the bottleneck path's rows
+(``"path": "bottleneck"``, ``"new"`` where the main path has no such
+shape).  The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or outside a checkout of the repository, the script fails and
 prints no result.
 """
@@ -229,6 +272,21 @@ TRAIN_STEPS = 5  # timed steps per training phase, after one warm-up
 # bench shapes (``conv_backward_check``).
 REF_TENSOR_TOL = 0.5
 REF_MODEL_TOL = 2e-2
+# [ddp]: timed steps of the two-rank bench run, after one warm-up
+DDP_STEPS = 3
+# [bottleneck]: PBNet with the bottleneck backbone
+BOTTLENECK_ARCHS = dict(backbone_arch="MinkUNet50", dunet_arch="MinkUNet14A",
+                        score_arch="MinkUNet34C")
+# [resnet]: the classifiers held card against CPU, on two rooms of
+# ``RESNET_POINTS`` points quantized at ``RESNET_VOXEL`` m: a 2.5 m room
+# spans 500 voxels, so the head's stride-192 level keeps 15-18 voxels per
+# room.  Its instance norm over a few voxels amplifies rounding in the
+# backward (at 1 cm, a few voxels per room, ResNet50's gradients moved by
+# 1.2e-2 in relative L2 between card and CPU), and over one voxel it gives
+# a constant
+RESNET_ARCHS_ON_CARD = ("ResNet50", "ResFieldNet14")
+RESNET_POINTS = 6_000
+RESNET_VOXEL = 0.005
 # the modules each training phase must reach with a non-zero gradient
 TRAIN_MODULES = {
     "backbone": ("MEUnet", "linear_sem", "linear_offset"),
@@ -589,9 +647,10 @@ def oracle_train_forward(model, batch, sem, offs):
     return ret
 
 
-def full_step(model, opt, cfg, batch, sem, offs, lr):
+def full_step(model, opt, cfg, batch, sem, offs, lr, group=None):
     """One oracle-driven full-phase train step: the package's forward,
-    ``losses.model_fn``, backward and ``train_step.apply_gradients``.
+    ``losses.model_fn``, backward and ``train_step.finish_step`` (over a
+    process ``group`` the gradients, aux and BN statistics are averaged).
     Returns (aux, forward outputs)."""
     from pbnet_torch.models import losses
     from pbnet_torch.parallel import train_step
@@ -601,10 +660,65 @@ def full_step(model, opt, cfg, batch, sem, offs, lr):
     ret = oracle_train_forward(model, batch, sem, offs)
     loss, aux = losses.model_fn(ret, batch, cfg, True)
     loss.backward()
-    gn, pn = train_step.apply_gradients(model, opt, cfg.fix_module, lr)
-    aux = {k: v.detach() for k, v in aux.items()}
-    aux.update(grad_norm=gn, param_norm=pn)
-    return aux, ret
+    return train_step.finish_step(model, opt, cfg, aux, lr, group), ret
+
+
+def step_record(model, aux, ret, state0):
+    """What ``hold_step`` compares of one train step, on the host: aux
+    floats, cluster ids, and per parameter its gradient and update (from
+    ``state0``), per BN buffer its value."""
+    params = dict(model.named_parameters())
+    return {"aux": {k: float(v) for k, v in aux.items()},
+            "cluster_id": ret["cluster"].cluster_id.cpu(),
+            "grad": {n: p.grad.detach().cpu() for n, p in params.items()},
+            "update": {n: p.detach().cpu() - state0[n] for n, p in params.items()},
+            "stat": {n: b.detach().cpu() for n, b in model.named_buffers()
+                     if n.endswith(("running_mean", "running_var"))}}
+
+
+def hold_step(tag, got, want, norm_rtol=1e-4):
+    """Phase 8's gates on one train step against another (``step_record``s):
+    cluster ids equal, no overflow, every loss term within rtol 1e-4 and
+    the gradient and parameter norms within ``norm_rtol``, every gradient
+    and update within ``REF_TENSOR_TOL`` of its tensor's scale and
+    ``REF_MODEL_TOL`` in relative L2 over the model, every BN statistic
+    within 1e-3 of its tensor's largest magnitude.  Returns (worst error
+    relative to scale, relative L2, tensors within 1e-3 of their scale)."""
+    import torch
+
+    if not torch.equal(got["cluster_id"], want["cluster_id"]):
+        raise AssertionError(f"{tag}: cluster ids differ")
+    over = {k: v for k, v in want["aux"].items() if k.startswith("overflow") and v}
+    if over:
+        raise AssertionError(f"{tag}: overflow {over}")
+    for k, v in want["aux"].items():
+        rtol = norm_rtol if k in ("grad_norm", "param_norm") else 1e-4
+        if not abs(got["aux"][k] - v) <= rtol * abs(v) + 1e-5:
+            raise AssertionError(f"{tag}: {k} {got['aux'][k]} against {v}")
+    within = {"grad": 0, "update": 0}
+    worst = {"grad": 0.0, "update": 0.0, "stat": 0.0}
+    rel_l2 = {}
+    for what in ("grad", "update"):
+        a, b = got[what], want[what]
+        # biases right before a train-mode BN have a zero gradient in exact
+        # arithmetic: their scale is 1e-3 of the model's largest
+        floor = 1e-3 * max(float(v.abs().max()) for v in b.values())
+        for n in b:
+            if not torch.isfinite(a[n]).all():
+                raise AssertionError(f"{tag}: non-finite {what} {n}")
+            rel = float((a[n] - b[n]).abs().max()) / max(float(b[n].abs().max()), floor)
+            if not rel <= REF_TENSOR_TOL:
+                raise AssertionError(f"{tag}: {what} {n} differs by {rel} of its scale")
+            within[what] += rel <= 1e-3
+            worst[what] = max(worst[what], rel)
+        rel_l2[what] = (sum(float((a[n] - b[n]).norm()) ** 2 for n in b)
+                        / sum(float(b[n].norm()) ** 2 for n in b)) ** 0.5
+        if not rel_l2[what] <= REF_MODEL_TOL:
+            raise AssertionError(f"{tag}: {what}s differ by {rel_l2[what]} in relative L2")
+    for n, v in want["stat"].items():
+        worst["stat"] = max(worst["stat"], close_err(got["stat"][n], v, 1e-3)
+                            / float(v.abs().max()))
+    return worst, rel_l2, within
 
 
 def write_dataset(root, val, test):
@@ -873,9 +987,14 @@ def main():
         wk.reset_launches()
         oc.reset_launches()
 
-    if sys.argv[1:] == ["--only", "data-eval"]:
-        data_eval_phase(card, reset_launches, launches)
-        log(f"[done] {time.time() - t_start:.1f} s (data-eval only: no result lines)")
+    only = {"data-eval": lambda: data_eval_phase(card, reset_launches, launches),
+            "ddp": lambda: ddp_phase(card, reset_launches, launches),
+            "ddp-cards": lambda: ddp_cards_phase(card),
+            "bottleneck": lambda: bottleneck_phase(card, reset_launches, launches, ()),
+            "resnet": lambda: resnet_phase(card)}
+    if len(sys.argv) == 3 and sys.argv[1] == "--only" and sys.argv[2] in only:
+        only[sys.argv[2]]()
+        log(f"[done] {time.time() - t_start:.1f} s ({sys.argv[2]} only: no result lines)")
         return 0
 
     # ---- bench scene (shared by the capture and the main path) ----
@@ -1283,6 +1402,15 @@ def main():
         rows[k]["launches_by_path"]["data-eval"] = eval_rows[k]["launches"] if k in KERNELS else 0
     for k in KERNELS:
         rows[k]["data_eval"] = eval_rows[k]
+
+    ddp_launches = ddp_phase(card, reset_launches, launches)
+    bn_counts, bn_rows = bottleneck_phase(card, reset_launches, launches,
+                                          [r["shape"] for r in shape_rows])
+    resnet_phase(card)
+    for k in ALL_KERNELS:
+        rows[k]["launches_by_path"]["ddp"] = ddp_launches.get(k, 0)
+        rows[k]["launches_by_path"]["bottleneck"] = bn_counts[k]
+    rows["onehot_conv"]["shapes"] += bn_rows
     log(f"[done] {time.time() - t_start:.1f} s")
 
     print(card, flush=True)
@@ -1380,52 +1508,18 @@ def train_phases(card, reset_launches, launches):
     finally:
         sparse_ops.COMPUTE_DTYPE = old_dtype
     (m_g, aux_g, ret_g), (m_c, aux_c, ret_c) = runs["card"], runs["cpu"]
-    if not torch.equal(ret_g["cluster"].cluster_id.cpu(), ret_c["cluster"].cluster_id):
-        raise AssertionError("train reference: cluster ids differ between card and CPU")
     if int(ret_c["num_final_proposals"]) < 4:
         raise AssertionError("train reference: fewer than 4 proposals")
-    over = {k: float(v) for k, v in aux_c.items() if k.startswith("overflow") and v}
-    if over:
-        raise AssertionError(f"train reference: overflow {over}")
-    for k, v in aux_c.items():
-        if not abs(float(aux_g[k]) - float(v)) <= 1e-4 * abs(float(v)) + 1e-5:
-            raise AssertionError(f"train reference: {k} {float(aux_g[k])} on the card, "
-                                 f"{float(v)} on the CPU")
-    pg, pc = dict(m_g.named_parameters()), dict(m_c.named_parameters())
-    p0 = {n: v for n, v in state.items() if n in pc}
-    within = {"grad": 0, "update": 0}
-    worst = {"grad": 0.0, "update": 0.0, "stat": 0.0}
-    rel_l2 = {}
-    for what, get in (("grad", lambda p, n: p.grad.detach().cpu()),
-                      ("update", lambda p, n: p.detach().cpu() - p0[n])):
-        on_card, on_cpu = ({n: get(p, n) for n, p in d.items()} for d in (pg, pc))
-        # biases right before a train-mode BN have a zero gradient in exact
-        # arithmetic: their scale is 1e-3 of the model's largest
-        floor = 1e-3 * max(float(v.abs().max()) for v in on_cpu.values())
-        for n in pc:
-            if not torch.isfinite(on_card[n]).all():
-                raise AssertionError(f"train reference: non-finite {what} {n}")
-            scale = max(float(on_cpu[n].abs().max()), floor)
-            rel = float((on_card[n] - on_cpu[n]).abs().max()) / scale
-            if not rel <= REF_TENSOR_TOL:
-                raise AssertionError(f"train reference: {what} {n} differs by {rel} of its scale")
-            within[what] += rel <= 1e-3
-            worst[what] = max(worst[what], rel)
-        rel_l2[what] = (sum(float((on_card[n] - on_cpu[n]).norm()) ** 2 for n in pc)
-                        / sum(float(on_cpu[n].norm()) ** 2 for n in pc)) ** 0.5
-        if not rel_l2[what] <= REF_MODEL_TOL:
-            raise AssertionError(f"train reference: {what}s differ by {rel_l2[what]} in "
-                                 f"relative L2")
-    bg = dict(m_g.named_buffers())
-    for n, v in m_c.named_buffers():
-        worst["stat"] = max(worst["stat"], close_err(bg[n].cpu(), v, 1e-3) / float(v.abs().max()))
+    worst, rel_l2, within = hold_step("train reference", step_record(m_g, aux_g, ret_g, state),
+                                      step_record(m_c, aux_c, ret_c, state))
+    n_params = len(list(m_c.parameters()))
     log(f"[train-reference] full-phase step, card vs CPU: {int(ret_c['cluster'].num_clusters)} "
         f"clusters (ids equal), {int(ret_c['num_final_proposals'])} proposals, loss "
         f"{float(aux_g['loss']):.6f} / {float(aux_c['loss']):.6f}; worst error relative to its "
         f"tensor's scale {worst}; relative L2 over the model {rel_l2}; within 1e-3 of their "
-        f"scale: {within['grad']} of {len(pc)} gradients, {within['update']} updates; "
+        f"scale: {within['grad']} of {n_params} gradients, {within['update']} updates; "
         f"{time.time() - t0:.1f} s")
-    del m_g, m_c, runs, pg, pc, bg, state
+    del m_g, m_c, runs, state
     torch.cuda.empty_cache()
     conv_backward_check()
 
@@ -1534,6 +1628,530 @@ def train_phases(card, reset_launches, launches):
     log(f"[train-engine] engine.train on {next(model.parameters()).device}: checkpoint {ck1}, "
         f"resumed at epoch 2 ({ck2}), scalars for epochs {epochs}; {time.time() - t0:.1f} s")
     return train_launches
+
+
+def ddp_rank(rank, world, port, spec, out_dir):
+    """One rank of a [ddp] run of ``world`` processes: a gloo group on the
+    card (every rank on device 0) or on the CPU, or with ``spec["backend"]
+    == "nccl"`` one rank per card.  ``spec["scene"]``: "bench" (full width;
+    rank 0 the bench scene, rank r > 0 its augmented copy with seed r in
+    caps 1.25x as large; Adam; ``spec["steps"]`` steps, the first a
+    warm-up) or "tiny" (phase 8's two-copy tiny scene, rank r seeded r; SGD;
+    one step, f32 conv operands).  Every step checks that all ranks hold
+    the same parameters and BN statistics bit for bit.  Writes its record
+    to ``out_dir/rank<r>.pt``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from pbnet_torch import synthetic
+    from pbnet_torch.config import Config
+    from pbnet_torch.models.pbnet import PBNet, batch_to_device
+    from pbnet_torch.nn import modules, sparse_ops
+    from pbnet_torch.ops import window_kernels as wk
+    from pbnet_torch.parallel import distributed, train_step
+
+    backend = spec.get("backend", "gloo")
+    if spec["device"] == "cpu":
+        dev = torch.device("cpu")
+        torch.set_num_threads(4)
+    else:
+        dev = torch.device("cuda", rank if backend == "nccl" else 0)
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    distributed.initialize(f"tcp://127.0.0.1:{port}", world, rank, backend, timeout_s=300)
+    group = dist.group.WORLD
+    if spec["scene"] == "bench":
+        shapes = synthetic.BENCH_SHAPES if rank == 0 else synthetic.BENCH_SHAPES.scaled(1.25)
+        nb, (sem, offs, _) = synthetic.bench_train_batch(0, shapes,
+                                                         augment_seed=rank or None)
+        cfg, seed = Config(shapes=shapes, optimizer="Adam", lr=1e-3), 0
+    else:
+        sparse_ops.COMPUTE_DTYPE = torch.float32
+        shapes = train_ref_shapes()
+        nb = synthetic.synthetic_batch(shapes, np.random.RandomState(rank), n_copies=2)
+        sem = np.clip(nb["sem_label"], 0, 19).astype(np.int32)
+        offs = np.where((nb["ins_label"] != -100)[:, None],
+                        nb["inst_info"][:, 0:3] - nb["xyz"], 0.0).astype(np.float32)
+        cfg, seed = Config(shapes=shapes, optimizer="SGD", lr=0.05, momentum=0.9,
+                           weight_decay=1e-4), 1
+    batch = batch_to_device(nb, dev)
+    sem, offs = torch.from_numpy(sem).to(dev), torch.from_numpy(offs).to(dev)
+    # weights drawn on the CPU: a CUDA generator gives other numbers for the
+    # same seed, and (c) holds the card's ranks against the CPU's
+    model = PBNet(shapes, device=dev)
+    model.load_state_dict(PBNet(shapes, seed=seed, device="cpu").state_dict())
+    modules.set_bn_group(model, group)
+    state0 = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    opt = train_step.make_optimizer(model, cfg)
+    steps = []
+    for i in range(spec["steps"]):
+        cuda = dev.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        wk.reset_launches()
+        t0 = time.perf_counter()
+        aux, ret = full_step(model, opt, cfg, batch, sem, offs, cfg.lr, group)
+        if cuda:
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        flat = torch.cat([t.detach().reshape(-1) for t in
+                          list(model.parameters()) + list(model.buffers())])
+        ref = flat.clone()
+        dist.broadcast(ref, 0)
+        steps.append(dict(
+            ms=ms, aux={k: float(v) for k, v in aux.items()},
+            launches={k: wk.LAUNCHES[k] for k in KERNELS},
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30 if cuda else None,
+            same_as_rank0=torch.equal(ref.view(torch.int32), flat.view(torch.int32)),
+            clusters=int(ret["cluster"].num_clusters),
+            proposals=int(ret["num_final_proposals"])))
+    record = {"steps": steps, "voxels": int(nb["vox_valid"].sum())}
+    if spec["scene"] == "tiny":
+        record["step"] = step_record(model, aux, ret, state0)
+    distributed.shutdown()
+    torch.save(record, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def run_ranks(spec, world=2, timeout_s=600):
+    """The [ddp] two-rank run of ``spec`` (``ddp_rank``): each rank's
+    record."""
+    import socket
+
+    import torch
+    from pbnet_torch.parallel import distributed
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    with tempfile.TemporaryDirectory() as out:
+        distributed.spawn(ddp_rank, world, (world, port, spec, out), timeout_s)
+        return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+                for r in range(world)]
+
+
+def ddp_phase(card, reset_launches, launches):
+    """Phase 13 [ddp] (module docstring).  Returns B1-B4's launches on rank
+    0 over the timed steps of the two-rank bench run."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from pbnet_torch import synthetic
+    from pbnet_torch.config import Config
+    from pbnet_torch.models.pbnet import PBNet, batch_to_device
+    from pbnet_torch.nn import modules, sparse_ops
+    from pbnet_torch.parallel import train_step
+
+    t_phase = time.time()
+    # (a) NCCL at world size 1: the distributed full step against the plain
+    # one, same weights and batch
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    # f32 conv operands, as phase 8: in bf16 the atomic index backwards'
+    # order flips roundings, and the two steps' gradients moved by 1.2e-2
+    # in relative L2 (first run of this phase)
+    old_dtype = sparse_ops.COMPUTE_DTYPE
+    sparse_ops.COMPUTE_DTYPE = torch.float32
+    try:
+        nb, (sem_o, offs_o, _) = synthetic.bench_train_batch(0)
+        batch = batch_to_device(nb, "cuda")
+        sem_t, offs_t = torch.from_numpy(sem_o).cuda(), torch.from_numpy(offs_o).cuda()
+        cfg = Config(shapes=synthetic.BENCH_SHAPES, optimizer="SGD", lr=0.05, momentum=0.9,
+                     weight_decay=1e-4)
+        records, ms = {}, {}
+        state0 = None
+        for run in ("nccl", "plain"):
+            model = PBNet(synthetic.BENCH_SHAPES, seed=0, device="cuda")
+            if state0 is None:
+                state0 = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+            group = dist.group.WORLD if run == "nccl" else None
+            modules.set_bn_group(model, group)
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            aux, ret = full_step(model, train_step.make_optimizer(model, cfg), cfg, batch, sem_t,
+                                 offs_t, cfg.lr, group)
+            torch.cuda.synchronize()
+            ms[run] = (time.perf_counter() - t0) * 1e3
+            counts = launches()
+            if not all(counts[k] > 0 for k in KERNELS):
+                raise AssertionError(f"ddp {run} step: launches {counts}")
+            records[run] = step_record(model, aux, ret, state0)
+            del model, aux, ret
+            torch.cuda.empty_cache()
+    finally:
+        sparse_ops.COMPUTE_DTYPE = old_dtype
+        dist.destroy_process_group()
+    # the card's atomic index backwards reorder sums between any two steps:
+    # the norms are held as the gradients are (1.9e-4 apart in bf16 in the
+    # first run of this phase)
+    worst, rel_l2, within = hold_step("ddp nccl", records["nccl"], records["plain"],
+                                      norm_rtol=REF_MODEL_TOL)
+    log(f"[ddp] (a) NCCL, world size 1: the full-phase bench step (f32) through the "
+        f"distributed step equals the plain step within phase 8's gates (cluster ids equal; "
+        f"worst error relative to scale {worst}; relative L2 {rel_l2}; within 1e-3: {within}); "
+        f"ms {ms} (one step each, the NCCL one first, with the communicator's set-up)")
+    del records, batch
+    torch.cuda.empty_cache()
+
+    # (b) two gloo ranks on the one card at full width
+    t0 = time.time()
+    steps = 1 + DDP_STEPS
+    ranks = run_ranks({"device": "cuda", "scene": "bench", "steps": steps})
+    for r, rec in enumerate(ranks):
+        for i, st in enumerate(rec["steps"]):
+            bad = [k for k in KERNELS if st["launches"][k] <= 0]
+            over = {k: v for k, v in st["aux"].items() if k.startswith("overflow") and v}
+            if not st["same_as_rank0"] or bad or over or not all(
+                    np.isfinite(v) for v in st["aux"].values()):
+                raise AssertionError(f"ddp rank {r} step {i}: same as rank 0 "
+                                     f"{st['same_as_rank0']}, unlaunched {bad}, overflow "
+                                     f"{over}, aux {st['aux']}")
+            if st["clusters"] <= 0 or st["proposals"] <= 0:
+                raise AssertionError(f"ddp rank {r} step {i}: {st['clusters']} clusters, "
+                                     f"{st['proposals']} proposals")
+    if ranks[0]["steps"][-1]["aux"] != ranks[1]["steps"][-1]["aux"]:
+        raise AssertionError("ddp: the averaged aux differs between the ranks")
+    for r, rec in enumerate(ranks):
+        timed = rec["steps"][1:]
+        log(f"[ddp] (b) gloo rank {r} of 2 on one card, {rec['voxels']} voxels: ms/step "
+            f"{[round(st['ms'], 3) for st in timed]}; median "
+            f"{statistics.median(st['ms'] for st in timed):.3f} ms; peak memory "
+            f"{max(st['peak_gib'] for st in timed):.3f} GiB; launches per step "
+            f"{timed[-1]['launches']}; clusters {timed[-1]['clusters']}, proposals "
+            f"{timed[-1]['proposals']}; card {card}")
+    losses = [st["aux"]["loss"] for st in ranks[0]["steps"]]
+    log(f"[ddp] (b) {steps} steps (1 warm-up): parameters and BN statistics bit-identical "
+        f"across the ranks after every step; averaged losses {[round(v, 5) for v in losses]}; "
+        f"{time.time() - t0:.1f} s")
+    ddp_launches = {k: sum(st["launches"][k] for st in ranks[0]["steps"][1:]) for k in KERNELS}
+
+    # (c) the tiny two-rank step on the card against the same on the CPU
+    t0 = time.time()
+    tiny = {dev: run_ranks({"device": dev, "scene": "tiny", "steps": 1})
+            for dev in ("cuda", "cpu")}
+    for r in range(2):
+        worst, rel_l2, within = hold_step(f"ddp tiny rank {r}", tiny["cuda"][r]["step"],
+                                          tiny["cpu"][r]["step"])
+        if not all(st["same_as_rank0"] for dev in tiny for st in tiny[dev][r]["steps"]):
+            raise AssertionError("ddp tiny: the ranks differ")
+        log(f"[ddp] (c) tiny two-rank full step, rank {r}, card vs CPU: worst error relative "
+            f"to scale {worst}; relative L2 {rel_l2}; within 1e-3: {within}")
+    log(f"[ddp] (c) {time.time() - t0:.1f} s; phase {time.time() - t_phase:.1f} s")
+    return ddp_launches
+
+
+def ddp_cards_phase(card):
+    """``--only ddp-cards`` (not in the default run, which needs one card):
+    every visible card one NCCL rank.  The full-phase bench step as in
+    [ddp] (b), rank r on the bench scene's augmented copy with seed r
+    (rank 0 the scene itself), 1 warm-up and ``DDP_STEPS`` timed steps,
+    under (b)'s gates; then ``engine.train`` over the same ranks on the tiny
+    synthetic dataset, resumed by a second call."""
+    import numpy as np
+    import torch
+    from pbnet_torch import engine, synthetic
+    from pbnet_torch.config import Config
+
+    t_phase = time.time()
+    n = torch.cuda.device_count()
+    if n < 2:
+        raise AssertionError(f"ddp-cards needs two cards or more, found {n}")
+    ranks = run_ranks({"device": "cuda", "backend": "nccl", "scene": "bench",
+                       "steps": 1 + DDP_STEPS}, world=n)
+    for r, rec in enumerate(ranks):
+        for i, st in enumerate(rec["steps"]):
+            bad = [k for k in KERNELS if st["launches"][k] <= 0]
+            over = {k: v for k, v in st["aux"].items() if k.startswith("overflow") and v}
+            if not st["same_as_rank0"] or bad or over or not all(
+                    np.isfinite(v) for v in st["aux"].values()):
+                raise AssertionError(f"ddp-cards rank {r} step {i}: same as rank 0 "
+                                     f"{st['same_as_rank0']}, unlaunched {bad}, overflow {over}")
+        timed = rec["steps"][1:]
+        log(f"[ddp-cards] NCCL rank {r} of {n} (cuda:{r}), {rec['voxels']} voxels: ms/step "
+            f"{[round(st['ms'], 3) for st in timed]}; median "
+            f"{statistics.median(st['ms'] for st in timed):.3f} ms; peak memory "
+            f"{max(st['peak_gib'] for st in timed):.3f} GiB; launches per step "
+            f"{timed[-1]['launches']}; card {card}")
+    log(f"[ddp-cards] {n} ranks bit-identical after every step; averaged losses "
+        f"{[round(st['aux']['loss'], 5) for st in ranks[0]['steps']]}")
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as logdir:
+        cfg = Config(shapes=train_ref_shapes(), epochs=2, cluster_epoch=1, validation=False,
+                     logpath=logdir, num_devices=n, batch_size=1)
+        ds = synthetic.SyntheticDataset(cfg.shapes, n_scenes=n)
+        engine.train(cfg, ds, max_epochs=1, device="cuda", join_timeout_s=600)
+        model, _ = engine.train(cfg, ds, max_epochs=2, device="cuda", join_timeout_s=600)
+        cks = sorted(f for f in os.listdir(logdir) if f.endswith(".ckpt"))
+        with open(os.path.join(logdir, "scalars.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        logs = os.listdir(os.path.join(logdir, "train"))
+    keys = [(r["tag"], r["step"]) for r in rows]
+    # one log file per call, named by the second it started in
+    if cks != ["000000002.ckpt"] or len(keys) != len(set(keys)) or not 1 <= len(logs) <= 2:
+        raise AssertionError(f"ddp-cards engine: checkpoints {cks}, {len(logs)} logs, "
+                             f"{len(keys) - len(set(keys))} repeated scalars")
+    log(f"[ddp-cards] engine.train over {n} NCCL ranks, then resumed: checkpoints {cks}, "
+        f"scalars of epochs {sorted({r['step'] for r in rows})} written once, one log per "
+        f"call; model on {next(model.parameters()).device}; {time.time() - t0:.1f} s; phase "
+        f"{time.time() - t_phase:.1f} s")
+
+
+def bottleneck_phase(card, reset_launches, launches, main_b6_keys):
+    """Phase 14 [bottleneck] (module docstring).  Returns ({kernel:
+    launches over the requests}, B6 shape rows)."""
+    import numpy as np
+    import torch
+    from pbnet_torch import synthetic
+    from pbnet_torch.models.pbnet import PBNet, batch_to_device
+    from pbnet_torch.nn import onehot_conv as oc
+    from pbnet_torch.nn import sparse_ops
+
+    t_phase = time.time()
+    shapes = {"gather": synthetic.BENCH_SHAPES, "banded": synthetic.BANDED_SHAPES}
+    batch, (sem_o, offs_o, soft_o), _ = synthetic.bench_request("cuda")
+    models = {"gather": PBNet(shapes["gather"], seed=0, device="cuda", **BOTTLENECK_ARCHS)}
+    models["banded"] = PBNet(shapes["banded"], device="cuda", **BOTTLENECK_ARCHS)
+    models["banded"].load_state_dict(models["gather"].state_dict())
+
+    def request(path):
+        bb = models[path].backbone(batch)
+        out = models[path].instance_stage(
+            batch, dict(bb, sem_pred_p=sem_o, offset_pred_p=offs_o, sem_soft_p=soft_o), False)
+        return bb, out
+
+    # a warm-up request of each; B6's arguments at every shape it launches
+    b6_calls = {}
+    oc_original = oc.onehot_conv
+
+    def b6_recorder(*a):
+        key = b6_key(shapes["banded"], a[1], a[2])
+        args, n = b6_calls.get(key, (a, 0))
+        b6_calls[key] = (args, n + 1)
+        return oc_original(*a)
+
+    oc.onehot_conv = b6_recorder
+    try:
+        t0 = time.time()
+        request("gather")
+        torch.cuda.synchronize()
+        t1 = time.time()
+        request("banded")
+        torch.cuda.synchronize()
+    finally:
+        oc.onehot_conv = oc_original
+    log(f"[bottleneck] MinkUNet50 / 14A / 34C; warm-up requests: gather {t1 - t0:.2f} s, banded "
+        f"{time.time() - t1:.2f} s; {len(b6_calls)} banded-conv shapes, "
+        f"{len(set(b6_calls) - set(main_b6_keys))} not on the main path")
+    shape_rows = []
+    for key in sorted(b6_calls):
+        (feats, plan, w, valid, dt), n = b6_calls[key]
+        if int(plan.overflow):
+            raise AssertionError(f"bottleneck {key}: the plan drops {int(plan.overflow)} entries")
+        kmap = oc.plan_map(plan)
+        got = oc.onehot_conv(feats, plan, w, valid, dt)
+        err = close_err(got, oc.onehot_conv_plain(feats, plan, w, valid, dt), B6_RTOL)
+        close_err(got, sparse_ops.gather_conv(feats, kmap, w, valid), B6_RTOL)
+        ms = time_kernel(lambda: oc.onehot_conv(feats, plan, w, valid, dt))
+        plain_ms = time_plain(lambda: oc.onehot_conv_plain(feats, plan, w, valid, dt))
+        lib_ms = time_kernel(lambda: sparse_ops.gather_conv(feats, kmap, w, valid))
+        bms, by, detail = b6_bound(feats, plan, w, valid, got)
+        new = key not in main_b6_keys
+        log(f"[bottleneck] onehot_conv {key}{' (new)' if new else ''} x{n}/request: max err "
+            f"{err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, gather conv {lib_ms:.4f} "
+            f"ms (kernel/gather {ms / lib_ms:.3f}), bound {bms:.4f} ms ({by}; {detail})")
+        shape_rows.append(dict(shape=key, path="bottleneck", new=new, per_request=n,
+                               max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                               bound_ms=bms, bound_by=by))
+    del b6_calls
+
+    counts_total = {k: 0 for k in ALL_KERNELS}
+    times, last = {p: [] for p in PATHS}, {}
+    for path in ("gather", "banded", "banded", "gather"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        bb, out = request(path)
+        torch.cuda.synchronize()
+        times[path].append((time.perf_counter() - t0) * 1e3)
+        counts = launches()
+        for k in ALL_KERNELS:
+            on_path = k in KERNELS or (k == "onehot_conv" and path == "banded")
+            if on_path != (counts[k] > 0):
+                raise AssertionError(f"bottleneck {path}: kernel {k} launched {counts[k]} times")
+            counts_total[k] += counts[k]
+        overflow = {k: int(v) for k, v in out["overflow"].items()}
+        overflow.update(vox=int(bb["overflow_vox"]), grid=int(bb["overflow_grid"]),
+                        band=int(bb["overflow_band"]))
+        if any(overflow.values()):
+            raise AssertionError(f"bottleneck {path}: overflow {overflow}")
+        if int(out["cluster"].num_clusters) <= 0 or int(out["num_final_proposals"]) <= 0:
+            raise AssertionError(f"bottleneck {path}: no clusters or proposals")
+        for k in ("mask_scores", "clt_scores"):
+            if not torch.isfinite(out[k]).all():
+                raise AssertionError(f"bottleneck {path}: non-finite {k}")
+        last[path] = (out, torch.cuda.max_memory_allocated() / 2**30)
+    (og, pk_g), (ob, pk_b) = last["gather"], last["banded"]
+    for k in ("scene_pid", "scene_src"):
+        if not torch.equal(og[k], ob[k]):
+            raise AssertionError(f"bottleneck: {k} differs between the banded and gather paths")
+    if not torch.equal(og["cluster"].cluster_id, ob["cluster"].cluster_id):
+        raise AssertionError("bottleneck: cluster ids differ between the banded and gather paths")
+    diffs = {k: (ob[k] - og[k]).abs().max().item() for k in ("mask_scores", "clt_scores")}
+    if not all(v <= SCORE_ATOL for v in diffs.values()):
+        raise AssertionError(f"bottleneck: banded scores differ by {diffs} > {SCORE_ATOL}")
+    log(f"[bottleneck] 2 requests each: ms/request gather "
+        f"{[round(t, 3) for t in times['gather']]}, banded "
+        f"{[round(t, 3) for t in times['banded']]}; peak memory gather {pk_g:.2f} GiB, banded "
+        f"{pk_b:.2f} GiB; launches {counts_total}; banded vs gather: ids equal, max |diff| "
+        f"{ {k: f'{v:.3e}' for k, v in diffs.items()} } (gate {SCORE_ATOL}); card {card}")
+    models.clear()
+    del batch, last, og, ob
+    torch.cuda.empty_cache()
+
+    # card == CPU on the tiny scene (phase 4's check with this backbone)
+    tiny = synthetic.GRAFT_SHAPES
+    tb = synthetic.synthetic_batch(tiny, np.random.RandomState(0))
+    old = sparse_ops.COMPUTE_DTYPE
+    sparse_ops.COMPUTE_DTYPE = torch.float32
+    try:
+        m_g = PBNet(tiny, seed=1, device="cuda", **BOTTLENECK_ARCHS)
+        m_c = PBNet(tiny, device="cpu", **BOTTLENECK_ARCHS)
+        m_c.load_state_dict({k: v.cpu() for k, v in m_g.state_dict().items()})
+        outs = []
+        for m, dev in ((m_g, "cuda"), (m_c, "cpu")):
+            b = batch_to_device(tb, dev)
+            bb = m.backbone(b)
+            outs.append((bb, m.instance_stage(b, oracle_bb_tiny(b, bb["point_ok"],
+                                                               bb["point_feat_p"]), True)))
+    finally:
+        sparse_ops.COMPUTE_DTYPE = old
+    (bg, og), (bc, oc_) = outs
+    close_err(bg["point_feat_p"].cpu(), bc["point_feat_p"], 1e-3)
+    for k in ("scene_pid", "prop_point_src", "num_proposals"):
+        if not torch.equal(og[k].cpu(), oc_[k]):
+            raise AssertionError(f"bottleneck tiny: {k} differs between card and CPU")
+    if not torch.equal(og["cluster"].cluster_id.cpu(), oc_["cluster"].cluster_id):
+        raise AssertionError("bottleneck tiny: cluster ids differ between card and CPU")
+    if not torch.allclose(og["mask_scores"].cpu(), oc_["mask_scores"], rtol=1e-3, atol=1e-3):
+        raise AssertionError("bottleneck tiny: mask scores differ between card and CPU")
+    log(f"[bottleneck] tiny scene full forward, card == CPU ({int(oc_['num_proposals'])} "
+        f"proposals); phase {time.time() - t_phase:.1f} s")
+    return counts_total, shape_rows
+
+
+def resnet_case(arch, dev, pts, pbatch, coords, valid):
+    """The classifier ``arch`` (weights seeded on the CPU) on ``dev`` over
+    the input level of ``coords``: (model, topology, inputs, batch ids).  A
+    point's voxel is its row in the key-sorted level; a voxel's features are
+    the mean of its points' coordinates."""
+    import torch
+    from pbnet_torch.core import topology as tp
+    from pbnet_torch.nn import resnet
+
+    cap = coords.shape[0]
+    level = tp.level_from_coords(coords.to(dev), valid.to(dev), cap, 1)
+    topo = resnet.build_resnet_topology(level, [cap] * 7)
+    bids = [lv.coords[:, 0] for lv in topo.levels]
+    pts, pbatch = pts.to(dev), pbatch.to(dev)
+    pvalid = torch.ones(pts.shape[0], dtype=torch.bool, device=dev)
+    p2v = tp.point_to_voxel_map(level, pts, pbatch, pvalid, RESNET_VOXEL)
+    gen = torch.Generator().manual_seed(0)
+    if arch.startswith("ResField"):
+        model = resnet.sparse_resfieldnet(3, 10, arch, generator=gen, device="cpu")
+        inputs = (pts, p2v, pvalid, level.valid)
+    else:
+        seg = p2v.long()
+        vfeat = torch.zeros((cap, 3), device=dev).index_add_(0, seg, pts)
+        cnt = torch.zeros(cap, device=dev).index_add_(0, seg, torch.ones_like(pts[:, 0]))
+        model = resnet.sparse_resnet(3, 10, arch, generator=gen, device="cpu")
+        inputs = (vfeat / cnt.clamp(min=1.0)[:, None],)
+    return model.to(dev), topo, inputs, bids
+
+
+def resnet_phase(card):
+    """Phase 15 [resnet] (module docstring)."""
+    import numpy as np
+    import torch
+    from pbnet_torch import synthetic
+    from pbnet_torch.core.quantize import sparse_quantize_np
+    from pbnet_torch.nn import sparse_ops
+
+    t_phase = time.time()
+    # two small rooms, one per batch item
+    rows, pts, pbatch = [], [], []
+    for b in range(2):
+        xyz, _, _, _ = synthetic.make_scene(np.random.RandomState(3 + b), n_pts=RESNET_POINTS,
+                                            room=2.5, n_obj=6)
+        vox, _, _ = sparse_quantize_np(xyz, RESNET_VOXEL)
+        rows.append(np.concatenate([np.full((len(vox), 1), b), vox], 1))
+        pts.append(xyz.astype(np.float32))
+        pbatch.append(np.full(len(xyz), b, np.int32))
+    coords = np.concatenate(rows).astype(np.int32)
+    cap = -(-len(coords) // 512) * 512
+    cpad = np.zeros((cap, 4), np.int32)
+    cpad[: len(coords)] = coords
+    valid = np.arange(cap) < len(coords)
+    t = torch.from_numpy
+    args = (t(np.concatenate(pts)), t(np.concatenate(pbatch)), t(cpad), t(valid))
+    ct = t(np.random.RandomState(5).randn(8, 10).astype(np.float32))
+    old = sparse_ops.COMPUTE_DTYPE
+    sparse_ops.COMPUTE_DTYPE = torch.float32
+    try:
+        for arch in RESNET_ARCHS_ON_CARD:
+            res = {}
+            for dev in ("cuda", "cpu"):
+                model, topo, inputs, bids = resnet_case(arch, dev, *args)
+                with torch.no_grad():
+                    logits_eval = model.eval()(topo, *inputs, bids)
+                model.train()
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = model(topo, *inputs, bids)
+                (out * ct.to(dev)).sum().backward()
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                step_ms = (time.perf_counter() - t0) * 1e3
+                res[dev] = (logits_eval.cpu(), out.detach().cpu(),
+                            {n: p.grad.cpu() for n, p in model.named_parameters()}, step_ms)
+            (eg, tg, gg, ms_g), (ec, tc, gc, ms_c) = res["cuda"], res["cpu"]
+            errs = {"eval": close_err(eg, ec, 1e-3) / float(ec.abs().max()),
+                    "train": close_err(tg, tc, 1e-3) / float(tc.abs().max())}
+            # the gradients under phase 8's gates: a deep net's backward
+            # through norms of few rows (the head normalises ~6 voxels per
+            # room) amplifies f32 summation-order differences
+            floor = 1e-3 * max(float(v.abs().max()) for v in gc.values())
+            worst, within = 0.0, 0
+            for n, v in gc.items():
+                rel = float((gg[n] - v).abs().max()) / max(float(v.abs().max()), floor)
+                if not rel <= REF_TENSOR_TOL:
+                    raise AssertionError(f"resnet {arch}: gradient {n} differs by {rel} of its "
+                                         f"scale between card and CPU")
+                worst, within = max(worst, rel), within + (rel <= 1e-3)
+            rel_l2 = (sum(float((gg[n] - v).norm()) ** 2 for n, v in gc.items())
+                      / sum(float(v.norm()) ** 2 for v in gc.values())) ** 0.5
+            if not rel_l2 <= REF_MODEL_TOL:
+                raise AssertionError(f"resnet {arch}: gradients differ by {rel_l2} in relative "
+                                     f"L2 between card and CPU")
+            log(f"[resnet] {arch} on {int(valid.sum())} voxels ({args[0].shape[0]} points), "
+                f"card vs CPU: logits relative error {errs}; gradients: worst {worst:.2e} of "
+                f"a tensor's scale, relative L2 {rel_l2:.2e}, {within} of {len(gc)} within 1e-3; "
+                f"train forward+backward {ms_g:.1f} ms on the card (first call), {ms_c:.1f} ms "
+                f"on the CPU; card {card}")
+    finally:
+        sparse_ops.COMPUTE_DTYPE = old
+    log(f"[resnet] phase {time.time() - t_phase:.1f} s")
 
 
 if __name__ == "__main__":

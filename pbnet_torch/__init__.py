@@ -5,11 +5,16 @@ module has an obvious counterpart:
 
   core/     coordinate keys, quantization, coordinate pyramids + kernel maps
   nn/       sparse conv (kernel-map gather + GEMM), masked norms, MinkUNets
+            (basic and bottleneck blocks), the ResNet/ResFieldNet classifiers
   ops/      clustering; its four banded-window passes are CUDA kernels
             (ops/window_kernels.py, csrc/window_kernels.cu)
   models/   the three-stage PBNet forward and its losses
-  parallel/ the train step and the optimizers (one device)
-  engine    the training loop: checkpoints, scalars, auto-resume
+  parallel/ the train and eval steps, the optimizers, data parallelism over
+            torch.distributed (ranks, SyncBN, gradient averaging)
+  engine    training and evaluation: checkpoints, scalars, auto-resume, ranks
+  data/     ScanNet decode, batches and loaders
+  tools/    logging and checkpoints, metrics and the AP evaluator, the
+            MinkowskiEngine checkpoint converter, the point-cloud plotter
   convert   JAX-package variables (and optax state) -> this package's
   synthetic seeded synthetic scenes for tests and the chip smoke run
 

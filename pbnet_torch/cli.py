@@ -9,8 +9,10 @@ field; ``eval`` and ``predict`` start from ``test_config()``), plus
 ``--device``: the commands run on CUDA unless ``--device cpu`` is passed,
 and raise without a GPU otherwise.  ``eval`` prints the result dict and the
 timing dict, as eval_map.py does; ``predict`` prints the directory of the
-submission files.  Data parallelism is not ported: ``train`` runs on one
-device.
+submission files.  ``train`` is data-parallel with ``--num_devices N`` (0:
+every visible GPU; one process per rank, SyncBN with ``--sync_bn``), and
+across hosts with ``--nodes``, ``--node_rank``, ``--coordinator host:port``
+(or ``--tcp_port`` on 127.0.0.1), each host running the command once.
 """
 
 from __future__ import annotations

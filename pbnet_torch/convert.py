@@ -8,6 +8,9 @@ Name rules (flax -> port):
 
 * ``.../Dense_0/kernel`` (Cin, Cout)  -> ``....weight`` transposed to
   (Cout, Cin); ``.../Dense_0/bias`` -> ``....bias``   (SparseLinear)
+* ``.../kernel`` (Cin, Cout) of an ``nn.Dense`` named by its module (the
+  classifiers' ``final``, the field blocks' ``field*_sinusoidal`` and
+  ``field*_linear``) -> ``....weight`` transposed, as above
 * ``.../kernel`` (K, Cin, Cout)       -> ``....kernel`` unchanged (SparseConv)
 * ``.../scale``, ``.../bias``         -> ``....weight``, ``....bias`` (norms)
 * ``.../alpha``                       -> ``....alpha`` (PReLU)
@@ -38,17 +41,14 @@ def _leaves(tree, prefix=()):
 def _param_name(path, value):
     leaf = path[-1]
     dense = len(path) >= 2 and path[-2] == "Dense_0"
-    base = ".".join(path[:-2] if dense else path[:-1])
+    base = path[:-2] if dense else path[:-1]
     if leaf == "kernel":
-        if dense:
-            return base + ".weight", value.T
-        return base + ".kernel", value
-    if leaf == "bias":
-        return base + ".bias", value
-    if leaf == "scale":
-        return base + ".weight", value
-    if leaf == "alpha":
-        return base + ".alpha", value
+        if value.ndim == 2:  # a Dense kernel; sparse-conv kernels are (K, Cin, Cout)
+            return ".".join(base + ("weight",)), value.T
+        return ".".join(base + ("kernel",)), value
+    names = {"bias": "bias", "scale": "weight", "alpha": "alpha"}
+    if leaf in names:
+        return ".".join(base + (names[leaf],)), value
     raise KeyError(f"unknown parameter {'/'.join(path)}")
 
 

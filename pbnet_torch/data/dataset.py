@@ -23,7 +23,7 @@ import collections
 import concurrent.futures as cf
 import os
 import time
-from typing import Callable, Iterable, Iterator, Optional
+from typing import Callable, Iterable, Iterator, Optional, Sequence
 
 import numpy as np
 
@@ -314,9 +314,15 @@ class Dataset:
         return [order[i * bs : (i + 1) * bs] for i in range(nb)]
 
     def train_loader(self, epoch: int, rank: int = 0, world: int = 1,
-                     num_workers: Optional[int] = None) -> Iterator[dict]:
+                     num_workers: Optional[int] = None,
+                     picks: Optional[Sequence[int]] = None) -> Iterator[dict]:
+        """The host's batches of ``train_epoch_ids(epoch, rank, world)``, or
+        those at the indices ``picks`` of that list (one data-parallel
+        rank's share, ``parallel/mesh.rank_batches``); batch ``i`` draws
+        its augmentation from ``batch_seed(manual_seed, epoch, i)``."""
         batches = self.train_epoch_ids(epoch, rank, world)
         workers = self.cfg.num_works if num_workers is None else num_workers
+        picks = range(len(batches)) if picks is None else picks
 
         def batch_rng(i):
             return np.random.RandomState(
@@ -324,17 +330,18 @@ class Dataset:
             )
 
         yield from prefetch(
-            self.train_batch,
-            ((ids, batch_rng(i)) for i, ids in enumerate(batches)), workers,
+            self.train_batch, ((batches[i], batch_rng(i)) for i in picks), workers,
         )
 
     def val_loader(self, num_workers: Optional[int] = None,
-                   max_scenes: Optional[int] = None) -> Iterator[dict]:
+                   max_scenes: Optional[int] = None, rank: int = 0,
+                   world: int = 1) -> Iterator[dict]:
+        """Val scenes ``rank, rank + world, ...`` of the first ``max_scenes``."""
         n = len(self.val_file_list)
         if max_scenes is not None:
             n = min(n, max_scenes)
         workers = self.cfg.num_works if num_workers is None else num_workers
-        yield from prefetch(self.val_batch, ((i,) for i in range(n)), workers)
+        yield from prefetch(self.val_batch, ((i,) for i in range(rank, n, world)), workers)
 
     # ---------------- test split (benchmark submission) ----------------
 

@@ -1,4 +1,4 @@
-"""Training and evaluation on one device (port of ``pbnet_tpu/engine.py``).
+"""Training and evaluation (port of ``pbnet_tpu/engine.py``).
 
 * ``train``: the reference's schedule — backbone-only steps through
   ``cfg.cluster_epoch``, the full three-stage pipeline after it; the cosine
@@ -6,14 +6,19 @@
   warning when any overflow counter is non-zero; per-epoch scalars in
   ``logpath/scalars.jsonl`` (and TensorBoard where it imports); a checkpoint
   every epoch, auto-resume from the newest one (the port's or the JAX
-  package's); validation every 4th epoch and at the last.
+  package's); validation every 4th epoch and at the last; a
+  ``torch.profiler`` trace of iterations ``[2, 2 + cfg.profile_steps)``.
+  With ``cfg.num_devices > 1`` (0: every visible GPU) or ``cfg.nodes > 1``
+  it is data-parallel: one process per local rank (``parallel/``), SyncBN
+  with ``cfg.sync_bn``, gradients, aux and BN statistics averaged every
+  step; rank 0 alone writes the log, scalars and checkpoints.
 * ``evaluate``: semantic mIoU/mAcc/allAcc and, past ``cluster_epoch``, the
   ScanNet instance AP of the validation split, one scene (3 TTA copies) per
-  forward in the smallest size bucket it fits.
+  forward in the smallest size bucket it fits; over a process group each
+  rank forwards its share of the scenes and the results merge in scene
+  order.
 * ``evaluate_pretrained`` and ``predict_testset``: the standalone eval and
   benchmark-submission drivers over a restored checkpoint.
-
-Data parallelism (DDP and SyncBatchNorm) comes with a later slice.
 """
 
 from __future__ import annotations
@@ -26,14 +31,18 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import resolve_device
 from .config import Config
 from .data.dataset import Dataset
 from .eval_pipeline import eval_scene_instances
 from .models.pbnet import PBNet, batch_to_device
+from .nn.modules import set_bn_group
 from .ops import window_kernels
-from .parallel.train_step import cosine_lr_after_step, make_optimizer, make_train_step
+from .parallel import distributed, mesh
+from .parallel.train_step import (cosine_lr_after_step, make_eval_step, make_optimizer,
+                                  make_train_step)
 from .tools import eval_protocol
 from .tools import log as log_tools
 from .tools import metrics
@@ -65,11 +74,16 @@ class ScalarWriter:
             self.tb.close()
 
 
-def build_model(cfg: Config, device=None, shapes=None) -> PBNet:
-    return PBNet(shapes=shapes or cfg.shapes, sem_num=cfg.sem_num, voxel_size=cfg.voxel_size,
-                 scale_size=cfg.scale_size, radius=cfg.radius, min_pts=cfg.min_pts,
-                 backbone_arch=cfg.backbone_arch, dunet_arch=cfg.dunet_arch,
-                 score_arch=cfg.score_arch, seed=cfg.manual_seed, device=device)
+def build_model(cfg: Config, device=None, shapes=None, group=None) -> PBNet:
+    """PBNet of ``cfg`` with seeded weights; over a process ``group`` with
+    ``cfg.sync_bn`` its BatchNorms are SyncBatchNorms."""
+    model = PBNet(shapes=shapes or cfg.shapes, sem_num=cfg.sem_num, voxel_size=cfg.voxel_size,
+                  scale_size=cfg.scale_size, radius=cfg.radius, min_pts=cfg.min_pts,
+                  backbone_arch=cfg.backbone_arch, dunet_arch=cfg.dunet_arch,
+                  score_arch=cfg.score_arch, seed=cfg.manual_seed, device=device)
+    if group is not None and cfg.sync_bn:
+        set_bn_group(model, group)
+    return model
 
 
 _HOST_ONLY = {"num_points", "num_voxels", "num_instances", "fn", "sup", "shapes", "keep_idx",
@@ -104,61 +118,52 @@ def scene_superpoints(batch: dict) -> np.ndarray:
     return np.unique(batch["sup"], return_inverse=True)[1]
 
 
-# the model outputs the host evaluation of a scene reads
-_EVAL_KEYS = ("sem_pred_p", "overflow_vox", "overflow_grid", "overflow_band", "overflow",
-              "mask_scores", "gt_mask", "scene_valid", "prop_point_kept", "prop_point_src",
-              "prop_point_pid", "num_final_proposals", "clt_scores", "prop_sem")
-
-
-def host_outputs(ret: dict) -> dict:
-    """The outputs the host evaluation reads, copied to numpy on the calling
-    thread (the copy waits for the device), so that worker threads read
-    finished host arrays only."""
-    def host(v):
-        if isinstance(v, dict):
-            return {k: host(x) for k, x in v.items()}
-        return v.detach().cpu().numpy()
-
-    return {k: host(ret[k]) for k in _EVAL_KEYS if k in ret}
-
-
 class _BucketModels:
-    """One model per size bucket, built at the bucket's first scene and
-    loaded with ``model``'s state dict (weights do not depend on the caps);
-    ``model`` itself serves its own shapes.  Keys the buckets for ``timing``
-    as the JAX package does (primes where two buckets round alike)."""
+    """One eval step per size bucket, over a model built at the bucket's
+    first scene and loaded with ``model``'s state dict (weights do not
+    depend on the caps); ``model`` itself serves its own shapes.  Keys the
+    buckets for ``timing`` as the JAX package does (primes where two
+    buckets round alike)."""
 
-    def __init__(self, cfg, model):
+    def __init__(self, cfg, model, with_instances=True, with_labels=False):
         self.cfg, self.model = cfg, model
+        self.modes = (with_instances, with_labels)
         self.device = next(model.parameters()).device
-        self.models, self.keys = {}, {}
+        self.steps, self.keys = {}, {}
 
     def get(self, shapes):
-        """(model in eval mode, timing key, whether it was just built)."""
-        new = shapes not in self.models
+        """(eval step ``batch -> host outputs``, timing key, whether it was
+        just built)."""
+        new = shapes not in self.steps
         if new:
             if shapes == self.model.shapes:
                 m = self.model
             else:
                 m = build_model(self.cfg, self.device, shapes)
                 m.load_state_dict(self.model.state_dict())
-            self.models[shapes] = m.eval()
+            self.steps[shapes] = make_eval_step(m.eval(), *self.modes)
             k = f"p{shapes.point_cap}/v{shapes.voxel_caps[0]}"
             while k in self.keys.values():
                 k += "'"
             self.keys[shapes] = k
-        return self.models[shapes], self.keys[shapes], new
+        return self.steps[shapes], self.keys[shapes], new
 
 
 def evaluate(cfg: Config, model: PBNet, dataset, epoch, logger=None, writer=None,
              max_scenes: int | None = None, test_mode: bool = False,
-             timing: dict | None = None) -> dict:
+             timing: dict | None = None, group=None) -> dict:
     """Validation: semantic mIoU + (past cluster_epoch) instance AP, on the
     model's device (PBNet train.py:123-304, eval_map.py:40-158).
 
     test_mode=True reproduces the standalone eval driver (task='test'): no
     labels in the forward, so no proposals are skipped by GT-mode and no
     mask-accuracy meters.
+
+    Over a process ``group`` (every rank calls it) rank ``r`` forwards val
+    scenes ``r, r + world, ...`` and runs their host work; the per-scene
+    results are gathered to every rank and merged in scene order, so the
+    metrics equal a one-rank run's and every rank returns them.  An error on
+    any rank is raised on every rank.
 
     ``timing`` (a dict to fill) gets the JAX package's keys
     (``bucket_compile_s``: the first forward's seconds per bucket;
@@ -172,13 +177,14 @@ def evaluate(cfg: Config, model: PBNet, dataset, epoch, logger=None, writer=None
     with_instances = epoch > cfg.cluster_epoch
     use_labels = with_instances and not test_mode
     emit = logger.info if logger else print
+    rank, world = (0, 1) if group is None else (dist.get_rank(group), dist.get_world_size(group))
 
     inter_m = np.zeros(cfg.sem_num)
     union_m = np.zeros(cfg.sem_num)
     target_m = np.zeros(cfg.sem_num)
     matches = {}
     gt_dir = os.path.join(cfg.data_root, "val_gt")
-    buckets = _BucketModels(cfg, model)
+    buckets = _BucketModels(cfg, model, with_instances, use_labels)
     dev = buckets.device
 
     all_acc = metrics.AverageMeter()
@@ -269,32 +275,32 @@ def evaluate(cfg: Config, model: PBNet, dataset, epoch, logger=None, writer=None
 
     # The loader prepares later scenes on its threads while the main thread
     # runs scene i's forward; the pool runs earlier scenes' host work
-    # (scene_work is pure) over outputs already copied to the host.  Only
-    # merge_scene, on the main thread, touches the accumulators.
+    # (scene_work is pure) over outputs already copied to the host.  The
+    # results (scene index, scene_work output, record) merge in scene order
+    # on the main thread once every scene is done.
     pw = max(1, min((os.cpu_count() or 1) - 1, 8))
     was_training = model.training
     t_loop = time.time()
-    n_done = 0
+    results, local_timing, error = [], {}, None
     try:
         with ThreadPoolExecutor(max_workers=pw) as pool:
             pending = []
-            for i, batch in enumerate(dataset.val_loader(max_scenes=n_scenes)):
-                shapes = batch.get("shapes", cfg.shapes)
-                m, bk, new = buckets.get(shapes)
+            scenes = zip(range(rank, n_scenes, world),
+                         dataset.val_loader(max_scenes=n_scenes, rank=rank, world=world))
+            for i, batch in scenes:
+                step, bk, new = buckets.get(batch.get("shapes", cfg.shapes))
                 before = dict(window_kernels.LAUNCHES)
                 if dev.type == "cuda":
                     torch.cuda.reset_peak_memory_stats(dev)
                 t0 = time.perf_counter()
-                ret = host_outputs(m(device_batch(batch, dev), with_instances=with_instances,
-                                     with_labels=use_labels))
+                ret = step(device_batch(batch, dev))
                 fwd_s = time.perf_counter() - t0
                 after = dict(window_kernels.LAUNCHES)
                 peak = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else None
-                if timing is not None:
-                    if new:
-                        timing.setdefault("bucket_compile_s", {})[bk] = round(fwd_s, 1)
-                    h = timing.setdefault("bucket_scene_counts", {})
-                    h[bk] = h.get(bk, 0) + 1
+                if new:
+                    local_timing.setdefault("bucket_compile_s", {})[bk] = round(fwd_s, 1)
+                h = local_timing.setdefault("bucket_scene_counts", {})
+                h[bk] = h.get(bk, 0) + 1
                 over = {"vox": int(ret["overflow_vox"]), "grid": int(ret["overflow_grid"]),
                         "band": int(ret["overflow_band"])}
                 over.update({k: int(v) for k, v in ret.get("overflow", {}).items()})
@@ -304,16 +310,39 @@ def evaluate(cfg: Config, model: PBNet, dataset, epoch, logger=None, writer=None
                               collate_s=batch.get("collate_s"), forward_ms=fwd_s * 1e3,
                               peak_mem_gib=peak)
                 while len(pending) >= pw:
-                    f, r = pending.pop(0)
-                    merge_scene(f.result(), r)
-                pending.append((pool.submit(scene_work, i, batch, ret), record))
-                n_done += 1
-            for f, r in pending:
-                merge_scene(f.result(), r)
+                    j, f, r = pending.pop(0)
+                    results.append((j, f.result(), r))
+                pending.append((i, pool.submit(scene_work, i, batch, ret), record))
+            for j, f, r in pending:
+                results.append((j, f.result(), r))
+    except Exception as e:
+        if world == 1:
+            raise
+        error = e  # raised on every rank after the gather, so no rank waits alone
     finally:
         model.train(was_training)
+    parts = [(results, local_timing, None if error is None else (type(error), str(error)))]
+    if world > 1:
+        gathered = [None] * world
+        dist.all_gather_object(gathered, parts[0], group=group)
+        if error is not None:
+            raise error
+        failed = next((g[2] for g in gathered if g[2] is not None), None)
+        if failed:
+            raise failed[0](failed[1])
+        parts = gathered
+    for _, out, record in sorted((r for p in parts for r in p[0]), key=lambda r: r[0]):
+        merge_scene(out, record)
     if timing is not None:
+        for _, t, _ in parts:
+            for bk, v in t.get("bucket_compile_s", {}).items():
+                c = timing.setdefault("bucket_compile_s", {})
+                c[bk] = max(c.get(bk, 0.0), v)
+            for bk, v in t.get("bucket_scene_counts", {}).items():
+                h = timing.setdefault("bucket_scene_counts", {})
+                h[bk] = h.get(bk, 0) + v
         wall = time.time() - t_loop
+        n_done = len(per_scene)
         timing["wall_s"] = round(wall, 2)
         timing["scenes"] = n_done
         compile_s = sum(timing.get("bucket_compile_s", {}).values())
@@ -327,7 +356,8 @@ def evaluate(cfg: Config, model: PBNet, dataset, epoch, logger=None, writer=None
     acc_class = inter_m / (target_m + 1e-10)
     miou, macc = float(np.mean(iou_class)), float(np.mean(acc_class))
     allacc = float(inter_m.sum() / (target_m.sum() + 1e-10))
-    emit(f"mIoU/mAcc/allAcc {miou:.4f}/{macc:.4f}/{allacc:.4f}.")
+    if rank == 0:
+        emit(f"mIoU/mAcc/allAcc {miou:.4f}/{macc:.4f}/{allacc:.4f}.")
     result = {"mIoU": miou, "mAcc": macc, "allAcc": allacc}
     if writer:
         writer.add_scalar("val/mIOU_eval", miou, epoch)
@@ -336,7 +366,8 @@ def evaluate(cfg: Config, model: PBNet, dataset, epoch, logger=None, writer=None
     if with_instances and matches:
         aps = eval_protocol.evaluate_matches(matches)
         avgs = eval_protocol.compute_averages(aps)
-        eval_protocol.print_results(avgs, logger)
+        if rank == 0:
+            eval_protocol.print_results(avgs, logger)
         result.update(mAP=float(avgs["all_ap"]), AP50=float(avgs["all_ap_50%"]),
                       AP25=float(avgs["all_ap_25%"]))
         result.update(mask_all_acc=all_acc.avg, mask_tp_acc=tp_acc.avg,
@@ -406,9 +437,8 @@ def predict_testset(cfg: Config, max_scenes=None, device=None) -> str:
         n_scenes = min(n_scenes, max_scenes)
     for i in range(n_scenes):
         batch = dataset.test_batch(i)
-        m, _, _ = buckets.get(batch.get("shapes", cfg.shapes))
-        ret = host_outputs(m(device_batch(batch, buckets.device), with_instances=True,
-                             with_labels=False))
+        step, _, _ = buckets.get(batch.get("shapes", cfg.shapes))
+        ret = step(device_batch(batch, buckets.device))
         pred_info = eval_scene_instances(ret, batch["num_points"], scene_superpoints(batch), cfg)
         if pred_info is None:
             logger.info(f"{batch['fn']}: no proposals")
@@ -420,27 +450,82 @@ def predict_testset(cfg: Config, max_scenes=None, device=None) -> str:
 
 
 def train(cfg: Config, dataset=None, max_epochs: int | None = None,
-          max_iters: int | None = None, device=None):
+          max_iters: int | None = None, device=None, join_timeout_s: float | None = None):
     """Train with auto-resume; returns (model, optimizer).  Runs on CUDA
     unless ``device`` says otherwise.  ``dataset`` defaults to
     ``Dataset(cfg)``; any object with its training interface
-    (``train_epoch_ids(epoch)``, ``train_loader(epoch)``) will do, and with
-    ``cfg.validation`` its ``val_file_list`` and ``val_loader``."""
-    if cfg.num_devices > 1:
-        raise NotImplementedError("data-parallel training (DDP + SyncBatchNorm) comes with "
-                                  "a later slice; set cfg.num_devices to 0 or 1")
-    if cfg.profile_steps:
-        raise NotImplementedError("cfg.profile_steps is not ported; profile with "
-                                  "torch.profiler around the step")
-    dev = resolve_device(device)
-    logger = log_tools.get_logger(cfg)
-    logger.info(str(cfg))
-    dataset = dataset or Dataset(cfg)
+    (``train_file_list``, ``train_epoch_ids(epoch, rank, world)``,
+    ``train_loader(epoch, rank, world, picks=...)``) will do, and with
+    ``cfg.validation`` its ``val_file_list`` and ``val_loader``.
 
-    model = build_model(cfg, dev)
+    Data parallelism: this host runs ``cfg.num_devices`` ranks (0: every
+    visible GPU; one on the CPU), ``cfg.nodes`` hosts in all, each starting
+    its own.  With more than one rank in all, each local rank is a process
+    of its own (``spawn``) on ``cuda:<local rank>`` over NCCL, or on the CPU
+    over gloo; the call returns when every rank has, with rank 0's model
+    and optimizer restored from the newest checkpoint onto the device of
+    local rank 0.  ``join_timeout_s`` bounds the wait for the ranks.  When
+    the dataset holds fewer scenes than one global step takes, a single
+    host shrinks to as many ranks as it can feed, with a warning."""
+    dev = resolve_device(device)
+    dataset = dataset or Dataset(cfg)
+    local = mesh.local_device_count(dev.type, cfg.num_devices)
+    notes = []
+    n_scenes = len(dataset.train_file_list)
+    if cfg.nodes == 1 and n_scenes < local * cfg.batch_size:
+        # fewer scenes than one global step consumes -> fewer ranks
+        local = max(1, n_scenes // cfg.batch_size)
+        notes.append(f"dataset has only {n_scenes} scenes — shrinking to {local} rank(s) so "
+                     f"one step fits")
+    if cfg.nodes * local == 1:
+        return _train_rank(0, cfg, dataset, max_epochs, max_iters, dev, 1, notes)
+    distributed.spawn(_train_rank, local,
+                      (cfg, dataset, max_epochs, max_iters, dev, local, notes),
+                      join_timeout_s)
+    rank0 = mesh.rank_device(dev.type, 0)
+    model = build_model(cfg, rank0)
     optimizer = make_optimizer(model, cfg)
-    logger.info(f"device: {dev}; #Model parameters: "
-                f"{sum(p.numel() for p in model.parameters())}")
+    state, _, _ = log_tools.checkpoint_restore({"model": model, "optimizer": optimizer},
+                                               cfg.logpath, map_location=rank0)
+    if state:  # no checkpoint when no epoch yielded a batch
+        model.load_state_dict(state["model"])
+        optimizer.load_state_dict(state["optimizer"])
+    return model, optimizer
+
+
+def _train_rank(local_rank, cfg, dataset, max_epochs, max_iters, device, local_world, notes):
+    """The training loop of one rank (the whole run when it is alone).
+    Returns (model, optimizer)."""
+    if cfg.nodes * local_world > 1:
+        if device.type == "cpu":
+            torch.set_num_threads(1)
+        dev = mesh.rank_device(device.type, local_rank)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        distributed.initialize_from_config(cfg, local_rank, local_world,
+                                           "nccl" if dev.type == "cuda" else "gloo")
+        try:
+            return _train_loop(cfg, dataset, max_epochs, max_iters, dev, local_rank,
+                               local_world, notes)
+        finally:
+            distributed.shutdown()
+    return _train_loop(cfg, dataset, max_epochs, max_iters, device, 0, 1, notes)
+
+
+def _train_loop(cfg, dataset, max_epochs, max_iters, dev, local_rank, local_world, notes):
+    group = mesh.data_group()
+    rank = dist.get_rank() if group is not None else 0
+    node_rank, nodes = distributed.local_data_rank() if group is not None else (0, 1)
+    logger = log_tools.get_logger(cfg) if rank == 0 else log_tools.rank_logger(rank)
+    logger.info(str(cfg))
+    for note in notes:
+        logger.warning(note)
+
+    model = build_model(cfg, dev, group=group)
+    optimizer = make_optimizer(model, cfg)
+    world = cfg.nodes * local_world
+    logger.info(f"device: {dev}; ranks: {world} ({local_world} on this host, rank {rank}); "
+                f"#Model parameters: {sum(p.numel() for p in model.parameters())}")
 
     # a file without "model" or "optimizer" (a model-only file, say) leaves
     # the freshly built one in place, as the JAX package keeps its template
@@ -452,7 +537,8 @@ def train(cfg: Config, dataset=None, max_epochs: int | None = None,
         optimizer.load_state_dict(state["optimizer"])
     logger.info(f"Restore from {ckfile}" if ckfile else f"Start from epoch {start_epoch}")
 
-    writer = ScalarWriter(cfg.logpath)
+    writer = ScalarWriter(cfg.logpath) if rank == 0 else None
+    prof = None
     try:
         steps = {}
         iter_time = metrics.AverageMeter()
@@ -461,33 +547,50 @@ def train(cfg: Config, dataset=None, max_epochs: int | None = None,
         for epoch in range(start_epoch, end_epoch + 1):
             with_instances = epoch > cfg.cluster_epoch
             if with_instances not in steps:
-                steps[with_instances] = make_train_step(model, optimizer, cfg, with_instances)
+                steps[with_instances] = make_train_step(model, optimizer, cfg, with_instances,
+                                                        group)
             step_fn = steps[with_instances]
             lr = cosine_lr_after_step(cfg.lr, epoch, cfg.step_epoch, cfg.epochs)
 
-            nsteps = len(dataset.train_epoch_ids(epoch))
+            # this host's batches; local rank r takes batch t * local_world + r
+            n_host = len(dataset.train_epoch_ids(epoch, node_rank, nodes))
+            picks = mesh.rank_batches(list(range(n_host)), local_rank, local_world)
+            nsteps = len(picks)
             am = {}
             t_epoch = time.time()
             it = 0
-            for batch in dataset.train_loader(epoch):
+            for batch in dataset.train_loader(epoch, node_rank, nodes, picks=picks):
                 t0 = time.time()
+                if cfg.profile_steps and total_iters == 2 and rank == 0:
+                    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]
+                                                  + ([torch.profiler.ProfilerActivity.CUDA]
+                                                     if dev.type == "cuda" else []))
+                    prof.start()
                 aux = step_fn(device_batch(batch, dev), lr)
                 aux = {k: float(v) for k, v in aux.items()}
                 dt = time.time() - t0
                 iter_time.update(dt)
                 it += 1
                 total_iters += 1
+                if prof is not None and total_iters == 2 + cfg.profile_steps:
+                    _stop_profile(prof, cfg)
+                    prof = None
                 for k, v in aux.items():
                     am.setdefault(k, metrics.AverageMeter()).update(v)
                 eta = ((nsteps - it) + nsteps * (end_epoch - epoch)) * iter_time.avg
-                sys.stdout.write(
-                    f"epoch: {epoch}/{cfg.epochs} iter: {it}/{nsteps} "
-                    f"loss: {aux['loss']:.4f}({am['loss'].avg:.4f}) "
-                    f"iter_time: {dt:.2f}({iter_time.avg:.2f}) "
-                    f"remain_time: {int(eta // 3600):02d}:{int(eta % 3600 // 60):02d}:"
-                    f"{int(eta % 60):02d}\n")
+                if rank == 0:
+                    sys.stdout.write(
+                        f"epoch: {epoch}/{cfg.epochs} iter: {it}/{nsteps} "
+                        f"loss: {aux['loss']:.4f}({am['loss'].avg:.4f}) "
+                        f"iter_time: {dt:.2f}({iter_time.avg:.2f}) "
+                        f"remain_time: {int(eta // 3600):02d}:{int(eta % 3600 // 60):02d}:"
+                        f"{int(eta % 60):02d}\n")
                 if max_iters and total_iters >= max_iters:
                     break
+            left = n_host % local_world
+            if left and it == nsteps and rank == 0:
+                logger.warning(f"epoch: {epoch}/{cfg.epochs}: dropped {left} leftover batch(es) "
+                               f"(< {local_world} local ranks; drop-last across the ranks)")
             if not am:
                 logger.warning(f"epoch: {epoch}/{cfg.epochs}: the loader yielded no batch")
                 continue
@@ -497,21 +600,36 @@ def train(cfg: Config, dataset=None, max_epochs: int | None = None,
             if over:
                 logger.warning(f"capacity overflow detected (work was dropped; raise "
                                f"StaticShapes caps): {over}")
-            for k, v in am.items():
-                writer.add_scalar(k + "_train", v.avg, epoch)
-            writer.add_scalar("train/learning_rate", lr, epoch)
-            ck = log_tools.checkpoint_save(
-                {"model": model.state_dict(), "optimizer": optimizer.state_dict()},
-                cfg.logpath, epoch, cfg.save_freq)
-            logger.info(f"Saving {ck}")
+            if rank == 0:
+                for k, v in am.items():
+                    writer.add_scalar(k + "_train", v.avg, epoch)
+                writer.add_scalar("train/learning_rate", lr, epoch)
+                ck = log_tools.checkpoint_save(
+                    {"model": model.state_dict(), "optimizer": optimizer.state_dict()},
+                    cfg.logpath, epoch, cfg.save_freq)
+                logger.info(f"Saving {ck}")
+            if group is not None:
+                dist.barrier()  # no rank reads a checkpoint rank 0 is still writing
 
             if cfg.validation and (epoch % 4 == 0 or epoch == cfg.epochs):
                 try:
-                    evaluate(cfg, model, dataset, epoch, logger, writer)
+                    evaluate(cfg, model, dataset, epoch, logger, writer, group=group)
                 except FileNotFoundError as e:
                     logger.info(f"validation skipped: {e}")
             if max_iters and total_iters >= max_iters:
                 break
     finally:
-        writer.close()
+        if prof is not None:
+            _stop_profile(prof, cfg)
+        if writer is not None:
+            writer.close()
     return model, optimizer
+
+
+def _stop_profile(prof, cfg):
+    """Stop a train-step profile and write its trace under
+    ``cfg.logpath/profile``."""
+    prof.stop()
+    out = os.path.join(cfg.logpath, "profile")
+    os.makedirs(out, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out, f"trace_{time.strftime('%Y%m%d_%H%M%S')}.json"))

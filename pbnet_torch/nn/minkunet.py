@@ -191,9 +191,5 @@ def mink_unet(in_channels: int, out_channels: int, arch: str = "MinkUNet18A",
         return MinkMiniUNet(in_channels, out_channels, generator=generator, device=device).eval()
     if arch not in ARCHS:
         raise ValueError(f"architecture {arch} not supported")
-    cfg = ARCHS[arch]
-    if cfg["block"] not in BLOCKS:
-        raise NotImplementedError(
-            f"{arch}: {cfg['block']} blocks are not ported yet")
     return MinkUNetBase(in_channels, out_channels, generator=generator,
-                        device=device, **cfg).eval()
+                        device=device, **ARCHS[arch]).eval()

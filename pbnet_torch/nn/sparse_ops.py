@@ -112,6 +112,15 @@ def gather_conv(feats: torch.Tensor, kmap: torch.Tensor, weights: torch.Tensor,
     return y
 
 
+def max_pool(feats: torch.Tensor, kmap: torch.Tensor, valid_out: torch.Tensor) -> torch.Tensor:
+    """Max pooling over the kernel-map neighborhood (e.g. k=2 s=2): missing
+    entries read -inf, a row with no entry pools to 0."""
+    present = (kmap >= 0)[:, :, None]
+    g = torch.where(present, take_rows0(feats, kmap), float("-inf"))
+    y = torch.where(present.any(1), g.amax(1), 0.0)
+    return torch.where(valid_out[:, None], y, 0.0)
+
+
 def global_pool(feats: torch.Tensor, batch_ids: torch.Tensor, valid: torch.Tensor,
                 num_segments: int, mode: str) -> torch.Tensor:
     """Per-batch-item global max/avg pooling over valid rows ->

@@ -49,6 +49,19 @@ def get_logger(cfg) -> logging.Logger:
     return create_logger(log_file)
 
 
+def rank_logger(rank: int) -> logging.Logger:
+    """The logger of a data-parallel rank other than 0: its warnings on the
+    console, no file (rank 0 writes the log)."""
+    logger = logging.getLogger(f"pbnet_torch.rank{rank}")
+    logger.setLevel(logging.WARNING)
+    logger.handlers.clear()
+    sh = logging.StreamHandler(sys.stdout)
+    sh.setFormatter(logging.Formatter(f"%(asctime)s  [rank {rank}] %(message)s"))
+    logger.addHandler(sh)
+    logger.propagate = False
+    return logger
+
+
 def checkpoint_save(state: dict, logpath: str, epoch: int, save_freq: int = 16) -> str:
     """state: e.g. {'model': model.state_dict(), 'optimizer':
     optimizer.state_dict()} (the model's state dict holds its parameters and

@@ -14,6 +14,12 @@ and ``engine.evaluate`` over decoded ScanNet-layout scenes (colour-oracle
 weights, the Mini_Unet trio at small caps) equal to the CPU's: mIoU, mAcc,
 allAcc and per-scene proposal counts exactly, the AP keys within 1e-6.
 
+Data parallelism on the card: a two-rank gloo backbone-phase step (SyncBN,
+Adam; both ranks on the one device) against the same two ranks on the CPU:
+both ranks bit-identical on each device, aux within rtol 1e-4, the
+averaged gradients (Adam's first moments) within 1e-3 of each tensor's
+scale, BN statistics within 1e-3.
+
 Training on the card: the gather conv's backward (the transposed-map gather
 and its GEMMs) and train-mode BN against the same code on the CPU, within
 1e-3 of each gradient's largest magnitude (the index backwards on the card
@@ -227,6 +233,10 @@ def b6_check(feats, plan, w, valid):
     (None, 512, 27, 3, 80, 200, 192),
     (1, 256, 8, 2, 64, 45, 128),
     (1, 320, 27, 3, 96, 96, 192),         # 128-row blocks, the last one ragged
+    # the bottleneck backbone's widest: convtr5 reads planes[4] * 4 = 1024
+    # channels (an up map), the blocks' 3x3 convs 128
+    (None, 1536, 8, 2, 1024, 128, 512),
+    (None, 1536, 27, 3, 128, 128, 192),
 ])
 def test_onehot_conv_tilings(dev, monkeypatch, sms, m_out, K, kz, cin, cout, span):
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -530,3 +540,34 @@ def test_evaluate_on_card_equals_cpu(dev, tmp_path):
             assert rg[k] == rc[k], k
         else:
             assert abs(rg[k] - rc[k]) <= 1e-6, k
+
+
+def test_two_rank_gloo_step_on_card_matches_cpu(dev, tmp_path):
+    import dataclasses
+
+    from pbnet_torch.models.pbnet import PBNet
+    from tests import torch_parallel_worker as worker
+
+    archs = dict(backbone_arch="Mini_Unet", dunet_arch="Mini_Unet", score_arch="Mini_Unet")
+    shapes = dataclasses.replace(synthetic.GRAFT_SHAPES, grid_extent=None)
+    cfg = Config(shapes=shapes, optimizer="Adam", lr=1e-3, sync_bn=True, **archs)
+    state = PBNet(shapes, device="cpu", **archs).state_dict()
+    batches = [[synthetic.synthetic_batch(shapes, np.random.RandomState(r))] for r in range(2)]
+    out = {}
+    for d in ("cuda", "cpu"):
+        (tmp_path / d).mkdir()
+        out[d] = worker.launch("train_step", {"f32": True, "cfg": cfg, "state": state,
+                                              "batches": batches, "lr": 1e-3, "device": d},
+                               tmp_path / d)
+        for n, v in out[d][0]["state"].items():
+            assert torch.equal(v, out[d][1]["state"][n]), (d, n)
+    got, want = out["cuda"][0], out["cpu"][0]
+    for k, v in want["aux"][0].items():
+        assert abs(got["aux"][0][k] - v) <= 1e-4 * abs(v) + 1e-5, k
+    floor = 1e-3 * max(float(g.abs().max()) for g in want["exp_avg"].values())
+    for n, g in want["exp_avg"].items():
+        assert float((got["exp_avg"][n] - g).abs().max()) <= 1e-3 * max(float(g.abs().max()),
+                                                                        floor), n
+    for n, v in want["state"].items():
+        if n.endswith(("running_mean", "running_var")):
+            assert float((got["state"][n] - v).abs().max()) <= 1e-3 * float(v.abs().max()), n

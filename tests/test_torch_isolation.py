@@ -1,13 +1,15 @@
 """The port stands alone: no JAX, no pbnet_tpu, no silent CPU fallback.
 
-* Importing pbnet_torch (every module: the eval, training, data and
-  checkpoint ones and the command line included), building and running a
+* Importing pbnet_torch (every module: the eval, training, data-parallel,
+  classifier, checkpoint-converter, plotting and checkpoint ones and the
+  command line included), building and running a
   model with banded convs, running one CPU train step, segmenting a mesh and
   reading a JAX-package checkpoint leaves ``jax``, ``flax``, ``optax``,
   ``msgpack`` and ``pbnet_tpu`` out of ``sys.modules`` (checked in a fresh
   subprocess, since this test process imports JAX for the parity tests).
   The segmentator library it loads is the port's own build, under
   ``pbnet_torch/_build/``.
+* A rank process spawned for data parallelism holds none of them.
 * No file of the port, nor chip_smoke.py, imports them.
 * An entry point called without ``device`` on a machine without CUDA raises.
 * chip_smoke.py fails, printing no result, without a GPU and outside a
@@ -64,7 +66,9 @@ def test_import_and_run_leave_jax_out(tmp_path):
         "from pbnet_torch.config import Config\n"
         "from pbnet_torch.models import losses\n"
         "from pbnet_torch.ops import iou\n"
-        "from pbnet_torch.parallel import train_step\n"
+        "from pbnet_torch.parallel import distributed, mesh, train_step\n"
+        "from pbnet_torch.nn import resnet\n"
+        "from pbnet_torch.tools import convert_checkpoint, plot\n"
         "import dataclasses\n"
         "sh = dataclasses.replace(synthetic.GRAFT_SHAPES, onehot_tm=128, onehot_spans=(256, 128),\n"
         "                         onehot_spans_local=(256, 128))\n"
@@ -94,6 +98,16 @@ def test_import_and_run_leave_jax_out(tmp_path):
     assert "clean" in r.stdout
     lib = Path(r.stdout.split("library ", 1)[1].split()[0])
     assert lib.parent == REPO / "pbnet_torch" / "_build" and lib.name.startswith("segmentator-")
+
+
+def test_spawned_rank_holds_no_jax(tmp_path):
+    """A gloo rank process started by ``distributed.spawn`` (as
+    ``engine.train`` starts its ranks) from this process, which holds JAX,
+    imports none of it."""
+    from tests import torch_parallel_worker as worker
+
+    assert "jax" in sys.modules
+    assert worker.launch("modules", {}, tmp_path) == [[], []]
 
 
 def test_no_jax_imports_in_port_sources():

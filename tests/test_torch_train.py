@@ -366,9 +366,17 @@ def test_engine_train_checkpoints_and_resumes(tmp_path):
 
 
 def test_engine_entry_points_refuse(tmp_path):
+    """No GPU: the default device raises.  Four ranks asked for on a
+    one-scene dataset: the run shrinks to one rank (in this process) with
+    the JAX package's warning, and trains."""
     ds = synthetic.SyntheticDataset(TINY, n_scenes=1)
     if not torch.cuda.is_available():  # the default device is CUDA
         with pytest.raises(RuntimeError, match="no CUDA device"):
             engine.train(engine_cfg(tmp_path), ds)
-    with pytest.raises(NotImplementedError, match="slice"):
-        engine.train(engine_cfg(tmp_path, num_devices=4), ds, device="cpu")
+    cfg = engine_cfg(tmp_path, num_devices=4)
+    model, _ = engine.train(cfg, ds, max_epochs=1, max_iters=1, device="cpu")
+    assert next(model.parameters()).device.type == "cpu"
+    assert sorted(f for f in os.listdir(cfg.logpath) if f.endswith(".ckpt")) == ["000000001.ckpt"]
+    log = "".join(open(os.path.join(cfg.logpath, "train", f)).read()
+                  for f in os.listdir(os.path.join(cfg.logpath, "train")))
+    assert "dataset has only 1 scenes — shrinking to 1 rank(s)" in log
