@@ -7,22 +7,32 @@ Phases (each prints its progress; any failed check raises and the script
 exits non-zero — no phase catches its own failure):
 
 1. build     nvcc-compile csrc/window_kernels.cu and csrc/onehot_conv.cu for
-             sm_90a (one nvcc per source, all started together) and print
-             ptxas's report; read B1's and B2's hot loops from the SASS
-             (cuobjdump): instructions per pair test and per bit and row.
+             sm_90a (with ``--baseline``, the baseline's window kernels
+             too), one nvcc per source, all started together; print
+             ptxas's report; read B1's, B2's and B4's hot loops from the
+             SASS (cuobjdump): instructions per pair test (B1, B4) and per
+             bit and row (B2).
 2. kernels   one warm-up forward of the bench scene records the arguments
              of each clustering kernel's first call; at those bench shapes
              each kernel must equal its plain PyTorch version exactly (bits,
              density, labels, columns; the 1-NN d2 bit for bit), and both
              are timed (kernel: median of 20 launches by CUDA events; plain:
-             median of 3 calls) beside the kernel's bound (see ``bound``);
-             window_1nn is timed again with every chunk needy, as trained
-             content makes it.  B1's line adds the pairs the bound counts,
-             those of the full grid and those the kernel tests.  B2 runs
+             median of 3 calls) beside the kernel's bound (see ``bound``).
+             B4 (one launch over both windows, needy rows only) at three
+             shapes: the main path's arguments, the noisy content's below
+             (needy rows where trained offsets put them) and the main path's
+             with every row needy; at each, exact against its plain version
+             and timed beside the bound, with the needy rows and chunks
+             counted; with ``--baseline``, also equal on needy rows to the
+             design before the rebuild (its kernel on each window and
+             clustering's former merge), timed the same way.  B1's line
+             adds the pairs the bound counts, those of the full grid and
+             those the kernel tests.  B2 runs
              again in every propagation round of binary_cluster on the bench
              scene's foreground points with 4 cm of noise on the offsets
              (more rounds, as trained offsets make): each round exact, and
-             timed (reported, not gated).  match_pick (B5, on no path) runs on the
+             timed (reported, not gated); that call's B4 arguments are the
+             noisy shape above.  match_pick (B5, on no path) runs on the
              border kernel's arguments with its ``best`` output as target:
              it must equal its plain version exactly and the border kernel's
              ``root``.  A warm-up forward in the banded configuration
@@ -53,7 +63,8 @@ exits non-zero — no phase catches its own failure):
              in turns gather, banded, banded, gather, gather, banded.
              Launch counters are zeroed just before each request and read
              just after: every kernel of the path must have run (the banded
-             conv on the banded path only); clusters > 0, proposals > 0,
+             conv on the banded path only), B4 once per clustering call (as
+             often as B1); clusters > 0, proposals > 0,
              zero overflow (overflow_band and conv_band included), finite
              outputs; the banded path's cluster and scene ids equal the
              gather path's and its scores lie within ``SCORE_ATOL``.
@@ -88,7 +99,8 @@ exits non-zero — no phase catches its own failure):
              each, in turns.  Gates: finite losses; in the full phase
              clusters > 0, proposals > 0, every overflow counter 0, mask,
              dice and score losses > 0 and each of B1-B4 launched within
-             every step; a finite non-zero gradient norm in every module
+             every step, B4 once per clustering call; a finite non-zero
+             gradient norm in every module
              the phase trains (all three UNets and every head in the full
              phase); parameters changed; a later loss below the first.  No
              banded conv runs under grad.  Median ms/step (CUDA-synchronised
@@ -115,7 +127,8 @@ exits non-zero — no phase catches its own failure):
              after, then ``predict_testset``.  Per scene: points, voxels,
              bucket, overflow counters, B1-B4 launches, decode s, collate s,
              forward ms, peak memory and host-eval s.  Gates: zero overflow;
-             each of B1-B4 launched on every scene, B5 and B6 on none; at
+             each of B1-B4 launched on every scene (B4 once per clustering
+             call), B5 and B6 on none; at
              least two buckets and one cropped scene; a proposal scored;
              every metric finite in [0, 1]; a submission file for the test
              scene.  B1-B4 then equal their plain versions exactly at the
@@ -123,7 +136,18 @@ exits non-zero — no phase catches its own failure):
              tiny config ``TINY_EVAL`` evaluates the same files on the card
              and on the CPU: mIoU, mAcc, allAcc and the per-scene proposal
              counts equal, every other key within 1e-6.
-13. ddp       data parallelism.  (a) NCCL at world size 1: one full-phase
+13. parity    the port's checkpoint-parity harness
+             (``python -m pbnet_torch.tools.parity_eval``) on the card: one
+             [data-eval] val scene (``DATA_VAL[0]``) written in ScanNet's
+             layout, seeded weights of the full-width test config with
+             ``synthetic.color_oracle`` set, written as a reference-format
+             ``.pth`` by ``convert_checkpoint.write_reference_pth``; ``main`` with
+             ``--scans`` decodes, writes val_gt, converts, evaluates and
+             prints its table.  Gates: no converted tensor unmatched, every
+             converted tensor equal to its source, the metrics finite in
+             [0, 1], zero overflow, B1-B4 launched (B4 once per clustering
+             call), B5 and B6 not; the phase's seconds.
+14. ddp       data parallelism.  (a) NCCL at world size 1: one full-phase
              train step at full width on the bench scene (f32 conv
              operands) through the distributed step (SyncBN and the
              gradient average over the group) against the plain step from
@@ -139,12 +163,13 @@ exits non-zero — no phase catches its own failure):
              14% more voxels at stride 4); Adam, 1 warm-up and ``DDP_STEPS`` timed steps of
              the full phase.  Gates: parameters and BN statistics
              bit-identical across the ranks after every step, each of
-             B1-B4 launched in every step of each rank, zero overflow,
+             B1-B4 launched in every step of each rank (B4 once per
+             clustering call), zero overflow,
              finite losses; median ms/step and peak memory per rank (both
              ranks share the card).  (c) The tiny two-rank step (phase 8's
              scene, rank r seeded r) on the card against the same two ranks
              on the CPU, under phase 8's gates.
-14. bottleneck
+15. bottleneck
              PBNet with the MinkUNet50 backbone (D_Unet 14A, ScoreNet 34C) on
              the bench scene, gather and banded, 2 requests each in turns:
              [main]'s gates (every kernel of the path launched, zero
@@ -153,14 +178,20 @@ exits non-zero — no phase catches its own failure):
              marked) against its plain version within ``B6_RTOL``, timed
              beside ``b6_bound`` and the gather conv.  Card == CPU on the
              tiny scene as in phase 4.
-15. resnet    ResNet50 and ResFieldNet14 on two small rooms (5 mm voxels): an
+16. resnet    ResNet50 and ResFieldNet14 on two small rooms (5 mm voxels): an
              eval forward and a train forward and backward, card against
              CPU, f32 conv operands: logits within 1e-3 of their largest
              magnitude; gradients under phase 8's gates (the head's
              instance norm over a few voxels per room amplifies rounding:
              at 1 cm ResNet50's gradients moved by 1.2e-2 in relative L2).
-``python3 chip_smoke.py --only <phase>`` (data-eval, ddp, bottleneck,
-resnet) runs the build and that phase alone and prints no result lines.
+``python3 chip_smoke.py --only <phase>`` (data-eval, parity, ddp,
+bottleneck, resnet) runs the build and that phase alone and prints no
+result lines.
+``python3 chip_smoke.py --baseline DIR [...]``: DIR holds a checkout from
+before B4's rebuild (commit 8062b0f, e.g. unpacked by ``git archive``);
+phase 2 builds its csrc/window_kernels.cu and times its B4 design (one
+launch per window and the merge) beside the one-launch kernel at the three
+shapes.
 ``--only ddp-cards``, on a machine with several cards (not in the default
 run): every card one NCCL rank through (b)'s full-width step and gates,
 then ``engine.train`` over the same ranks with a resume.
@@ -178,13 +209,16 @@ shape's time times its launches in one request, summed (``shapes`` lists
 them).  ``launches_by_path["train"]`` counts B1-B4 over the 5 timed
 full-phase train steps, ``launches_by_path["data-eval"]`` over the
 data-eval phase's evaluate run (three scenes), whose own kernel check is
-under ``data_eval``; ``["ddp"]`` counts B1-B4 on rank 0 over the timed
+under ``data_eval``; ``["parity"]`` over the parity harness's run (one
+scene); ``["ddp"]`` counts B1-B4 on rank 0 over the timed
 two-rank steps, ``["bottleneck"]`` every kernel over the bottleneck
 phase's four requests; B6's ``shapes`` adds the bottleneck path's rows
 (``"path": "bottleneck"``, ``"new"`` where the main path has no such
-shape).  The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
-device, or outside a checkout of the repository, the script fails and
-prints no result.
+shape).  B4's row adds ``shapes`` (its three shapes: kernel, plain and
+bound ms, ``baseline_ms`` or null, needy rows and chunks, pairs),
+``empty_launch_ms`` and ``sass``.  The last line is ``{"ok": true,
+"device": {...}}``.  Without a CUDA device, or outside a checkout of the
+repository, the script fails and prints no result.
 """
 
 import dataclasses
@@ -321,7 +355,6 @@ TINY_EVAL = dict(
     backbone_arch="Mini_Unet", dunet_arch="Mini_Unet", score_arch="Mini_Unet",
     eval_bucket_scales=(1.0,))
 
-
 def log(msg):
     print(msg, flush=True)
 
@@ -428,11 +461,15 @@ def bound(name, args, outs):
         pairs = int(((rows_i[:, 1] > 0).sum(1) * cols).sum())
         f32, i32 = (k * pairs for k in PAIR_OPS)
     elif name == "window_1nn":
-        # a chunk with need == 0 reads neither its rows nor its window
-        rows_f, rows_g, wf, wi, need = args
-        needy = need > 0
-        n_bytes = nbytes(need, *outs) + sum(nbytes(t[needy]) for t in (rows_f, rows_g, wf, wi))
-        pairs = rows_f.shape[2] * int((wi[:, 1] > 0)[needy].sum())
+        # needy rows against their chunk's candidate columns (left window
+        # and right fresh); bytes: the needy rows' xyz and group, the planes
+        # and anchors of chunks with a needy row, the row mask, the outputs
+        rows_f, rows_g, need, w1f, w1i, w2f, w2i, anchor, anchor2 = args
+        per_chunk = need.sum(1)
+        hit = per_chunk > 0
+        n_bytes = (int(per_chunk.sum()) * 4 * 4 + nbytes(need, *outs)
+                   + sum(nbytes(t[hit]) for t in (w1f, w1i, w2f, w2i, anchor, anchor2)))
+        pairs = b4_pairs(args)
         f32, i32 = (k * pairs for k in PAIR_OPS)
     else:
         f32, i32 = 0, SET_BIT_OPS[name] * set_bits(args[0], args[1])
@@ -443,11 +480,12 @@ def bound(name, args, outs):
             detail)
 
 
-def sass_hot_blocks(lib_path, kernels):
+def sass_hot_blocks(lib_path, kernels, score=None):
     """The SASS of each kernel named in ``kernels`` (name fragments), read
     with cuobjdump: {fragment: [(instructions, opcode counts)]} of the
     largest straight-line block of each instantiation (its fully unrolled
-    inner loop).  Blocks end at labels and branches."""
+    inner loop), or the one ``score(opcode counts)`` ranks first.  Blocks
+    end at labels and branches."""
     import re
     from collections import Counter
 
@@ -457,6 +495,9 @@ def sass_hot_blocks(lib_path, kernels):
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
                           timeout=300, check=True).stdout
     instr = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)")
+
+    def total(ops):
+        return sum(ops.values())
     found = {k: [] for k in kernels}
     for func in re.split(r"\n\s*Function : ", sass)[1:]:
         key = next((k for k in kernels if k in func.split()[0]), None)
@@ -469,7 +510,7 @@ def sass_hot_blocks(lib_path, kernels):
                 cur[m.group(1)] += 1
             if (m is None and re.match(r"\s*\.L_x_\d+:", line)) or (
                     m and m.group(1) in ("BRA", "EXIT", "RET", "BSYNC", "WARPSYNC")):
-                if sum(cur.values()) > sum(best.values()):
+                if (score or total)(cur) > (score or total)(best):
                     best = cur
                 cur = Counter()
         found[key].append((sum(best.values()), best))
@@ -497,6 +538,110 @@ def b1_pairs(args, block_rows=B1_BLOCK_ROWS):
     rows = (v.view(nchunks, nb, block_rows).any(2) * size).sum(1)
     words = sum((wi[:, 1] > 0).view(nchunks, W // 32, 32).any(2).sum(1) for wi in (w1i, w2i))
     return counted, 2 * nchunks * chunk * W, int((rows * words * 32).sum())
+
+
+
+def b4_pairs(args):
+    """Pair tests B4's data needs: each needy row against the candidate
+    columns of its chunk's two windows."""
+    need, w1i, w2i = args[2], args[4], args[6]
+    cands = (w1i[:, 1] > 0).sum(1) + (w2i[:, 1] > 0).sum(1)
+    return int((need.sum(1) * cands).sum())
+
+
+def b4_once(counts, where):
+    """B4 runs once per clustering call, as B1 does."""
+    if counts["window_1nn"] != counts["neighbor_pack"]:
+        raise AssertionError(f"{where}: B4 launched {counts['window_1nn']} times for "
+                             f"{counts['neighbor_pack']} clustering calls")
+
+
+def start_baseline_build(root):
+    """Start nvcc (the package's flags) on the window kernels of the checkout
+    at ``root``, from before B4's rebuild, into the build directory:
+    (process or None if built, library path)."""
+    import hashlib
+    from pathlib import Path
+
+    from pbnet_torch import _build
+
+    src = Path(root) / "pbnet_torch" / "csrc" / "window_kernels.cu"
+    if "int pbnet_window_1nn(const int* need" not in src.read_text():
+        raise SystemExit(f"--baseline {root}: not a checkout from before B4's rebuild "
+                         "(its pbnet_window_1nn takes one window)")
+    tag = hashlib.sha256(src.read_bytes() + " ".join(_build.NVCC_FLAGS).encode()).hexdigest()
+    lib = _build.BUILD_DIR / f"window_kernels_baseline-{tag[:16]}.so"
+    if lib.exists():
+        return None, lib
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    # into a temporary name, renamed once nvcc succeeds
+    cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(lib.with_suffix(".tmp")), str(src)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True), lib
+
+
+def baseline_b4(lib, args, need_c):
+    """The baseline's design on B4's arguments: its kernel on the left
+    window, again on the right one, and clustering's merge of the two
+    (``take2``, two selects, the anchor adds, ``isfinite``).  ``need_c``:
+    needy rows per chunk, int32."""
+    import ctypes
+
+    import torch
+
+    rows_f, rows_g, _, w1f, w1i, w2f, w2i, anchor, anchor2 = args
+    nchunks, _, chunk = rows_f.shape
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    outs = []
+    for wf, wi in ((w1f, w1i), (w2f, w2i)):
+        d2 = torch.empty((nchunks, chunk), dtype=torch.float32, device=rows_f.device)
+        col = torch.empty((nchunks, chunk), dtype=torch.int32, device=rows_f.device)
+        err = lib.pbnet_window_1nn(*(ctypes.c_void_p(t.data_ptr()) for t in (
+            need_c, rows_f, rows_g, wf, wi, d2, col)), nchunks, chunk, wf.shape[2], stream)
+        if err:
+            raise RuntimeError(f"baseline B4 kernel: CUDA launch failed with error {err}")
+        outs.append((d2, col))
+    (bd1, c1), (bd2, c2) = outs
+    take2 = bd2 <= bd1
+    best = torch.where(take2, bd2, bd1)
+    j = torch.where(take2, anchor2[:, None] + c2, anchor[:, None] + c1)
+    return best, j, torch.isfinite(best)
+
+
+def b4_shape(tag, args, base_lib, card):
+    """B4 at one shape: exact against its plain version and timed beside the
+    bound; with a baseline library (``base_lib``), also equal on needy rows
+    to its design (``baseline_b4``), timed the same way.  Logs and returns the
+    shape's record."""
+    import torch
+
+    from pbnet_torch.ops import window_kernels as wk
+
+    got = wk.window_1nn(*args)
+    err = max_abs_err(got, wk.window_1nn_plain(*args))
+    need = args[2]
+    ms = time_kernel(lambda: wk.window_1nn(*args))
+    baseline_ms, base_note = None, "baseline not timed (no --baseline)"
+    if base_lib is not None:
+        need_c = need.sum(1, dtype=torch.int32)
+        base = baseline_b4(base_lib, args, need_c)
+        fin = need & torch.isfinite(got[0])
+        if not (torch.equal(base[0][need].view(torch.int32), got[0][need].view(torch.int32))
+                and torch.equal(base[1][fin], got[1][fin])):
+            raise AssertionError(f"B4 {tag}: the baseline answers otherwise on needy rows")
+        baseline_ms = time_kernel(lambda: baseline_b4(base_lib, args, need_c))
+        base_note = (f"baseline equal on needy rows, 2 launches + merge {baseline_ms:.4f} ms "
+                    f"({baseline_ms / ms:.2f}x the kernel)")
+    plain_ms = time_plain(lambda: wk.window_1nn_plain(*args))
+    bms, by, detail = bound("window_1nn", args, got)
+    n_rows, n_chunks, pairs = int(need.sum()), int(need.any(1).sum()), b4_pairs(args)
+    log(f"[kernels] window_1nn {tag}: {n_rows} needy rows in {n_chunks} of {need.shape[0]} "
+        f"chunks, {pairs} pair tests; exact; kernel {ms:.4f} ms; {base_note}; plain "
+        f"{plain_ms:.3f} ms, bound {bms:.6f} ms ({by}; {detail}; the kernel at "
+        f"{bms / ms:.3f} of it); card {card}")
+    return dict(max_abs_err=err, ms=ms, baseline_ms=baseline_ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, needy_rows=n_rows, needy_chunks=n_chunks, chunks=need.shape[0],
+                pairs=pairs)
 
 
 def family(name):
@@ -838,6 +983,8 @@ def data_eval_phase(card, reset_launches, launches, device="cuda"):
         unlaunched = {r["fn"]: [k for k in KERNELS if r["launches"][k] <= 0] for r in per_scene}
         if any(unlaunched.values()):
             raise AssertionError(f"data-eval: clustering kernels not launched {unlaunched}")
+        for r in per_scene:
+            b4_once(r["launches"], f"data-eval {r['fn']}")
         if any(counts[k] for k in ALL_KERNELS if k not in KERNELS):
             raise AssertionError(f"data-eval: a kernel off this path ran {counts}")
         buckets = {r["bucket"] for r in per_scene}
@@ -924,6 +1071,88 @@ def data_eval_phase(card, reset_launches, launches, device="cuda"):
     return kernel_rows
 
 
+
+def parity_phase(card, reset_launches, launches):
+    """Phase 13 [parity]: the port's checkpoint-parity harness
+    (``pbnet_torch.tools.parity_eval``) on the card, from a raw scan to its
+    table.  One [data-eval] val scene (``DATA_VAL[0]``) written in ScanNet's
+    layout; seeded weights of the full-width test config with
+    ``synthetic.color_oracle`` set, written as a reference-format ``.pth``
+    by ``convert_checkpoint.write_reference_pth``; then ``main`` with ``--scans``
+    (decode, val_gt, convert, evaluate).  Gates: no converted tensor
+    unmatched; every converted tensor equal to its source; the metrics
+    finite in [0, 1]; zero overflow; B1-B4 launched, B4 once per clustering
+    call, B5 and B6 not at all.  Returns {kernel: launches}."""
+    import numpy as np
+    import torch
+
+    from pbnet_torch import engine, synthetic
+    from pbnet_torch.config import test_config
+    from pbnet_torch.tools import convert_checkpoint as cc
+    from pbnet_torch.tools import parity_eval
+
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory() as root:
+        name, n_vertices, n_objects = DATA_VAL[0]
+        scans = os.path.join(root, "scans")
+        synthetic.write_scannet_scene(os.path.join(scans, "val"), name, np.random.RandomState(0),
+                                      n_vertices, n_objects, object_labels=(ORACLE_NYU40,))
+        with open(os.path.join(root, "scannetv2_val.txt"), "w") as f:
+            f.write(name + "\n")
+        cfg = test_config()
+        model = engine.build_model(cfg, "cpu")
+        synthetic.color_oracle(model, ORACLE_CLASS)
+        source = model.state_dict()
+        pth = os.path.join(root, "000000001.pth")
+        cc.write_reference_pth(source, pth)
+        converted = cc.load_reference_checkpoint(pth)
+        differ = sorted(set(source) ^ set(converted)) + [
+            k for k in source if k in converted and not torch.equal(converted[k], source[k])]
+        if differ:
+            raise AssertionError(f"parity: converted tensors differ from their source {differ[:8]}")
+
+        runs = []
+        run_parity = parity_eval.run_parity
+
+        def spy(*a, **kw):
+            runs.append(run_parity(*a, **kw))
+            return runs[-1]
+
+        cwd = os.getcwd()
+        os.chdir(root)  # the harness's log directory is relative
+        parity_eval.run_parity = spy
+        try:
+            reset_launches()
+            t0 = time.time()
+            res = parity_eval.main(["--pth", pth, "--scans", scans, "--data_root", root,
+                                    "--max_scenes", "1"])
+            secs = time.time() - t0
+            counts = launches()
+        finally:
+            parity_eval.run_parity = run_parity
+            os.chdir(cwd)
+    (_, unmatched, timing), = runs
+    if unmatched:
+        raise AssertionError(f"parity: converted tensors matched nothing {unmatched[:8]}")
+    metrics = {k: res.get(k) for k in ("mIoU", "mAcc", "allAcc", "mAP", "AP50", "AP25")}
+    if not all(v is not None and np.isfinite(v) and 0.0 <= v <= 1.0 for v in metrics.values()):
+        raise AssertionError(f"parity: a metric is not finite in [0, 1]: {metrics}")
+    (scene,) = timing["per_scene"]
+    if any(scene["overflow"].values()):
+        raise AssertionError(f"parity: overflow {scene['overflow']}")
+    if not all(counts[k] > 0 for k in KERNELS) or any(counts[k] for k in ALL_KERNELS
+                                                      if k not in KERNELS):
+        raise AssertionError(f"parity: launches {counts}")
+    b4_once(counts, "parity")
+    log(f"[parity] {name} ({n_vertices} vertices, {scene['points']} points, bucket "
+        f"{scene['bucket']}): {len(source)} tensors written, converted back equal, none "
+        f"unmatched; {metrics}; {scene['proposals']} proposals; launches "
+        f"{ {k: counts[k] for k in KERNELS} }; harness {secs:.2f} s (forward "
+        f"{scene['forward_ms']:.1f} ms); card {card}")
+    log(f"[parity] phase {time.time() - t_phase:.1f} s")
+    return counts
+
+
 def module_grad_norms(model, names):
     from pbnet_torch.parallel import train_step
 
@@ -932,11 +1161,19 @@ def module_grad_norms(model, names):
 
 
 def main():
+    import ctypes
+
     import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
+        return 2
+    argv, baseline = sys.argv[1:], None
+    if len(argv) >= 2 and argv[0] == "--baseline":
+        baseline, argv = os.path.abspath(argv[1]), argv[2:]
+    if argv and not (len(argv) == 2 and argv[0] == "--only"):
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from pbnet_torch import _build, synthetic
@@ -958,13 +1195,27 @@ def main():
 
     # ---- 1. build ----
     t0 = time.time()
+    base_proc = base_lib_path = None
+    if baseline is not None:
+        base_proc, base_lib_path = start_baseline_build(baseline)
     _build.build_all(["window_kernels", "onehot_conv"])
+    if base_proc is not None:
+        out, _ = base_proc.communicate()
+        if base_proc.returncode:
+            raise RuntimeError(f"nvcc failed for the baseline's window kernels:\n{out}")
+        os.replace(base_lib_path.with_suffix(".tmp"), base_lib_path)
+        _build.BUILD_LOG["window_kernels (baseline)"] = (out, time.time() - t0)
     for name, (out, secs) in _build.BUILD_LOG.items():
         log(f"[build] {name}.cu: {secs:.1f} s")
         for line in out.splitlines():
             if "Used" in line or "spill" in line or "error" in line.lower():
                 log(f"[build]   {line.strip()}")
     log(f"[build] done in {time.time() - t0:.1f} s")
+    base_lib = None
+    if base_lib_path is not None:
+        base_lib = ctypes.CDLL(str(base_lib_path))
+        base_lib.pbnet_window_1nn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
     # the hot loops of B1 and B2 as compiled: instructions per pair test
     # (B1: 3 FMUL per pair) and per bit and row (B2: one min/max each)
     hot = sass_hot_blocks(_build._target("window_kernels")[1],
@@ -979,6 +1230,15 @@ def main():
                 per = f"{nred} bit-rows, {size / max(nred, 1):.3f} per bit-row"
             log(f"[sass] {key}: hot block {size} instructions ({per}); "
                 f"{dict(ops.most_common(10))}")
+    # B4's hot loop: the block with the most pair tests (3 FMUL each)
+    b4_sass = []
+    for size, ops in sass_hot_blocks(_build._target("window_kernels")[1], ("window_1nn_kernel",),
+                                     score=lambda ops: ops["FMUL"])["window_1nn_kernel"]:
+        npair = ops["FMUL"] // 3
+        b4_sass.append(dict(instructions=size, pair_tests=npair,
+                            per_pair=size / max(npair, 1), opcodes=dict(ops.most_common(12))))
+        log(f"[sass] window_1nn_kernel: hot block {size} instructions ({npair} pair tests, "
+            f"{size / max(npair, 1):.2f} per pair); {dict(ops.most_common(12))}")
 
     def launches():
         return {**wk.LAUNCHES, **oc.LAUNCHES}
@@ -988,13 +1248,14 @@ def main():
         oc.reset_launches()
 
     only = {"data-eval": lambda: data_eval_phase(card, reset_launches, launches),
+            "parity": lambda: parity_phase(card, reset_launches, launches),
             "ddp": lambda: ddp_phase(card, reset_launches, launches),
             "ddp-cards": lambda: ddp_cards_phase(card),
             "bottleneck": lambda: bottleneck_phase(card, reset_launches, launches, ()),
             "resnet": lambda: resnet_phase(card)}
-    if len(sys.argv) == 3 and sys.argv[1] == "--only" and sys.argv[2] in only:
-        only[sys.argv[2]]()
-        log(f"[done] {time.time() - t_start:.1f} s ({sys.argv[2]} only: no result lines)")
+    if len(argv) == 2 and argv[0] == "--only" and argv[1] in only:
+        only[argv[1]]()
+        log(f"[done] {time.time() - t_start:.1f} s ({argv[1]} only: no result lines)")
         return 0
 
     # ---- bench scene (shared by the capture and the main path) ----
@@ -1054,7 +1315,7 @@ def main():
         f"captured {sorted(captured)} and {len(b6_calls)} banded-conv shapes")
 
     rows = {}
-    for name in KERNELS:
+    for name in KERNELS[:3]:  # B4 below, at three shapes
         args, kw = captured[name]
         kern, plain = getattr(wk, name), getattr(wk, name + "_plain")
         got = kern(*args, **kw)
@@ -1068,12 +1329,6 @@ def main():
         shp = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
         log(f"[kernels] {name}: exact at {shp}; kernel {ms:.4f} ms, plain "
             f"{plain_ms:.3f} ms, bound {bms:.4f} ms ({by}; {detail})")
-        if name == "window_1nn":
-            # the main path's B4 launches skip every chunk: set an empty
-            # launch beside them, timed the same way
-            empty_ms = time_kernel(lambda: torch.cuda._sleep(0))
-            log(f"[kernels] {name}: an empty launch (torch.cuda._sleep(0)) takes "
-                f"{empty_ms:.4f} ms by the same timing; B4 on the main path {ms:.4f} ms")
         if name == "neighbor_pack":
             counted, grid, tested = b1_pairs(args)
             log(f"[kernels] {name}: pairs the bound counts {counted}, pairs of the full grid "
@@ -1081,19 +1336,6 @@ def main():
         rows[name] = dict(name=name, route="cuda", source=SOURCE[name],
                           replaces=TPU_KERNEL[name], max_abs_err=err, ms=ms,
                           plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None)
-    rows["window_1nn"]["empty_launch_ms"] = empty_ms
-    # oracle content routes almost no rows to the 1-NN pass, so the captured
-    # call mostly skips; time the same tiles with every chunk needy as well
-    # (trained offsets leave needy rows in many chunks)
-    args, _ = captured["window_1nn"]
-    args = args[:4] + (torch.ones_like(args[4]),)
-    max_abs_err(wk.window_1nn(*args), wk.window_1nn_plain(*args))
-    ms = time_kernel(lambda: wk.window_1nn(*args))
-    plain_ms = time_plain(lambda: wk.window_1nn_plain(*args))
-    bms, by, detail = bound("window_1nn", args, wk.window_1nn(*args))
-    log(f"[kernels] window_1nn, every chunk needy: exact; kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.3f} ms, bound {bms:.4f} ms ({by}; {detail})")
-
     # B2 on content that needs several propagation rounds: binary_cluster on
     # the bench scene's foreground points (compacted to the fg cap, as the
     # model does) with 4 cm of noise on the oracle offsets (as phase 3);
@@ -1105,13 +1347,18 @@ def main():
     noise = np.random.RandomState(2).randn(nf, 3).astype(np.float32) * 0.04
     nargs = ((xyz_b + offs_b)[sel] + noise, xyz_b[sel], sem_b[sel], np.zeros(nf, np.int32),
              sem_b[sel] >= 2)
-    reduce_calls = []
+    reduce_calls, noisy_b4 = [], []
 
     def reduce_recorder(*a, **kw):
         reduce_calls.append((a, kw))
         return originals["masked_window_reduce"](*a, **kw)
 
+    def b4_recorder(*a):
+        noisy_b4.append(a)
+        return originals["window_1nn"](*a)
+
     wk.masked_window_reduce = reduce_recorder
+    wk.window_1nn = b4_recorder
     try:
         m, sh = models["gather"], shapes["gather"]
         noisy = cl.binary_cluster(*(torch.from_numpy(a).cuda() for a in nargs),
@@ -1121,6 +1368,7 @@ def main():
         torch.cuda.synchronize()
     finally:
         wk.masked_window_reduce = originals["masked_window_reduce"]
+        wk.window_1nn = originals["window_1nn"]
     round_ms = []
     for a, kw in reduce_calls:
         max_abs_err((wk.masked_window_reduce(*a, **kw),),
@@ -1139,6 +1387,27 @@ def main():
         f"{med * len(reduce_calls):.4f} ms; {nbits} set bits; bound {bms:.4f} ms per launch "
         f"({by}); per round {[round(t, 4) for t in round_ms]}")
     del reduce_calls
+
+    # B4 at three shapes: the main path's arguments (oracle content: few
+    # needy rows), the noisy content's (needy rows where trained offsets put
+    # them) and the main path's with every row needy.  The one-launch kernel
+    # against its plain version (with --baseline, beside the design before
+    # the rebuild: its kernel on each window and the merge), against the
+    # bound of the work the shape needs
+    name = "window_1nn"
+    empty_ms = time_kernel(lambda: torch.cuda._sleep(0))
+    (main_args, _), (noisy_args,) = captured[name], noisy_b4
+    all_needy = main_args[:2] + (torch.ones_like(main_args[2]),) + main_args[3:]
+    b4_rows = {tag: b4_shape(tag, args, base_lib, card) for tag, args in (
+        ("main", main_args), ("noisy", noisy_args), ("all_needy", all_needy))}
+    log(f"[kernels] {name}: an empty launch (torch.cuda._sleep(0)) takes {empty_ms:.4f} ms "
+        f"by the same timing")
+    m = b4_rows["main"]
+    rows[name] = dict(name=name, route="cuda", source=SOURCE[name], replaces=TPU_KERNEL[name],
+                      max_abs_err=max(r["max_abs_err"] for r in b4_rows.values()), ms=m["ms"],
+                      plain_ms=m["plain_ms"], bound_ms=m["bound_ms"], bound_by=m["bound_by"],
+                      library_ms=None, empty_launch_ms=empty_ms, shapes=b4_rows, sass=b4_sass)
+    del noisy_b4, main_args, noisy_args, all_needy
 
     # B5 on the border kernel's arguments, with its ``best`` as the target:
     # there match_pick must give the border kernel's ``root``
@@ -1306,6 +1575,7 @@ def main():
             if not on_path and counts[k]:
                 raise AssertionError(f"kernel {k} was launched on the {path} path")
             path_launches[path][k] += counts[k]
+        b4_once(counts, f"[main] {path} request")
         last[path] = (bb, out)
 
     for path in PATHS:
@@ -1402,6 +1672,9 @@ def main():
         rows[k]["launches_by_path"]["data-eval"] = eval_rows[k]["launches"] if k in KERNELS else 0
     for k in KERNELS:
         rows[k]["data_eval"] = eval_rows[k]
+    parity_counts = parity_phase(card, reset_launches, launches)
+    for k in ALL_KERNELS:
+        rows[k]["launches_by_path"]["parity"] = parity_counts[k]
 
     ddp_launches = ddp_phase(card, reset_launches, launches)
     bn_counts, bn_rows = bottleneck_phase(card, reset_launches, launches,
@@ -1577,6 +1850,7 @@ def train_phases(card, reset_launches, launches):
                     raise AssertionError(f"train full step {i}: a zero instance loss {vals}")
                 if not all(counts[k] > 0 for k in KERNELS):
                     raise AssertionError(f"train full step {i}: launches {counts}")
+                b4_once(counts, f"train full step {i}")
                 if i > 0:
                     for k in KERNELS:
                         train_launches[k] += counts[k]
@@ -1735,7 +2009,7 @@ def run_ranks(spec, world=2, timeout_s=600):
 
 
 def ddp_phase(card, reset_launches, launches):
-    """Phase 13 [ddp] (module docstring).  Returns B1-B4's launches on rank
+    """Phase 14 [ddp] (module docstring).  Returns B1-B4's launches on rank
     0 over the timed steps of the two-rank bench run."""
     import socket
 
@@ -1816,6 +2090,7 @@ def ddp_phase(card, reset_launches, launches):
                 raise AssertionError(f"ddp rank {r} step {i}: same as rank 0 "
                                      f"{st['same_as_rank0']}, unlaunched {bad}, overflow "
                                      f"{over}, aux {st['aux']}")
+            b4_once(st["launches"], f"ddp rank {r} step {i}")
             if st["clusters"] <= 0 or st["proposals"] <= 0:
                 raise AssertionError(f"ddp rank {r} step {i}: {st['clusters']} clusters, "
                                      f"{st['proposals']} proposals")
@@ -1876,6 +2151,7 @@ def ddp_cards_phase(card):
                     np.isfinite(v) for v in st["aux"].values()):
                 raise AssertionError(f"ddp-cards rank {r} step {i}: same as rank 0 "
                                      f"{st['same_as_rank0']}, unlaunched {bad}, overflow {over}")
+            b4_once(st["launches"], f"ddp-cards rank {r} step {i}")
         timed = rec["steps"][1:]
         log(f"[ddp-cards] NCCL rank {r} of {n} (cuda:{r}), {rec['voxels']} voxels: ms/step "
             f"{[round(st['ms'], 3) for st in timed]}; median "
@@ -1907,7 +2183,7 @@ def ddp_cards_phase(card):
 
 
 def bottleneck_phase(card, reset_launches, launches, main_b6_keys):
-    """Phase 14 [bottleneck] (module docstring).  Returns ({kernel:
+    """Phase 15 [bottleneck] (module docstring).  Returns ({kernel:
     launches over the requests}, B6 shape rows)."""
     import numpy as np
     import torch
@@ -1990,6 +2266,7 @@ def bottleneck_phase(card, reset_launches, launches, main_b6_keys):
             if on_path != (counts[k] > 0):
                 raise AssertionError(f"bottleneck {path}: kernel {k} launched {counts[k]} times")
             counts_total[k] += counts[k]
+        b4_once(counts, f"bottleneck {path}")
         overflow = {k: int(v) for k, v in out["overflow"].items()}
         overflow.update(vox=int(bb["overflow_vox"]), grid=int(bb["overflow_grid"]),
                         band=int(bb["overflow_band"]))
@@ -2080,7 +2357,7 @@ def resnet_case(arch, dev, pts, pbatch, coords, valid):
 
 
 def resnet_phase(card):
-    """Phase 15 [resnet] (module docstring)."""
+    """Phase 16 [resnet] (module docstring)."""
     import numpy as np
     import torch
     from pbnet_torch import synthetic

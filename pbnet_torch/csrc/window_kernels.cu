@@ -434,99 +434,259 @@ masked_window_border_kernel(const uint32_t* __restrict__ bits1,
 }
 
 // ---------------------------------------------------------------------------
-// B4 window_1nn.  Bound on H100: operations — chunk*W pair tests per needy
-// chunk, few bytes; a chunk with need == 0 reads nothing.  Design: one warp per row (8 rows per warp held in
-// registers), lanes striding over the window columns staged 1024 at a time
-// in shared memory (consecutive lanes, consecutive banks).  Each lane keeps
-// (d2, col) under the order "smaller d2, then larger col"; a shuffle
-// reduction with the same order finishes the row.  Non-candidates count as
-// d2 = inf, so a row with no candidate returns (inf, W-1), as the Pallas
-// kernel's `<=` scan does; a chunk with need == 0 returns (inf, -1) without
-// scanning.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(THREADS)
-window_1nn_kernel(const int* __restrict__ need, const float* __restrict__ rows_f,
-                  const int* __restrict__ rows_g, const float* __restrict__ wf,
-                  const int* __restrict__ wi, float* __restrict__ d2_out,
-                  int* __restrict__ col_out, int chunk, int W) {
-  __shared__ float sx[TILE], sy[TILE], sz[TILE];
-  __shared__ int sg[TILE], sm[TILE];
+// B4 window_1nn.  Replaces pallas_kernels.py::window_1nn, which clustering
+// calls twice (left window, then the right window's fresh columns) and then
+// merges; this kernel takes both windows in one launch and writes the merged
+// answer.  Per NEEDY row: over the candidate columns (flag set, same group)
+// of the left window and then the right window, the least d2, and among
+// ties the LAST column in that order (the left window's columns 0..W-1, then
+// the right window's): JAX's `<=` scan within a window and its
+// `take2 = bd2_2 <= bd2_1` across the two.  Output j = anchor + col (left)
+// or anchor2 + col (right), the padded sorted row; (inf, -1) for a row that
+// is not needy or has no candidate.
+//
+// Bound on H100: operations — one pair test (PAIR_OPS) per needy row and
+// candidate column of its chunk's two windows; bytes are few.
+//
+// Design: a block owns a slab of NN_SLAB rows of one chunk.
+// - Rows: a ballot and a prefix over the slab compact its needy rows into
+//   shared memory; rows that are not needy get (inf, -1) at once, and a
+//   slab with no needy row returns.  Needy rows go in groups of NN_R, held
+//   in registers (an empty slot has x = NaN, so it never takes a column).
+// - Columns: each staged tile of NN_TILE window columns is compacted to its
+//   candidate columns (a ballot per 32 columns, a scan of the 32 segment
+//   counts in every warp), written in column order as a float4 (x, y, z,
+//   group bits) plus the column's window position (right window: W + col).
+//   Each thread loads its columns of the NEXT tile into registers while the
+//   current one is tested (as B1 does), so a slab with few needy rows does
+//   not wait on a load per tile.
+// - Work: the 8 warps form `teams` teams of 8 / teams warps (teams: the
+//   least power of two >= the slab's groups, at most 8); a team takes one
+//   group and its warps split the tile's candidates, lane = column.  So a
+//   slab with one needy row runs it on all 8 warps, and a full slab runs a
+//   group per warp.  Per candidate: one 16-byte and one 4-byte shared load
+//   serve NN_R pair tests (d2 without contraction, a group compare, a
+//   predicated select of d2 and position).  A lane's columns ascend, so
+//   `d2 <= best` keeps the last tie; a shuffle butterfly and a merge of the
+//   team's warps in shared memory under (smaller d2, larger position)
+//   finish each row.
+// - Occupancy: 4 rows per group and 64-row slabs keep the kernel at 64
+//   registers (4 blocks, 32 warps per SM); 8 rows per group and 128-row
+//   slabs needed 109 registers (2 blocks per SM) and ran slower.  Unrolling
+//   the column loop by two saved about one instruction per pair test and
+//   no time, so the loop stays plain.
+// - Why slabs: numbering a chunk's needy rows chunk-wide instead (block b
+//   takes needy rows 64b..64b+63, so a chunk with few stages its windows in
+//   one block) was slower at every shape measured (NVIDIA H100 80GB HBM3,
+//   700.00 W): noisy content 0.0288 against 0.0237 ms, no needy row 0.0076
+//   against 0.0060.
+//   A block's time is its walk over the tiles; a chunk's slabs run side by
+//   side on SMs that would idle, so staging a chunk again costs L2 traffic,
+//   not time, while one block per chunk halves the warps per row group and
+//   every block pays a count over the whole chunk.
+constexpr int NN_SLAB = 64;                   // rows per block
+constexpr int NN_R = 4;                       // needy rows per group
+constexpr int NN_TILE = 1024;                 // window columns staged per pass
+constexpr int NN_PER = NN_TILE / THREADS;     // columns per thread and tile
+static_assert(NN_PER * WARPS == 32, "the segment scan takes one word per lane");
+static_assert(NN_SLAB <= THREADS && NN_SLAB % 32 == 0, "one thread per slab row");
+
+__global__ void __launch_bounds__(THREADS, 4)
+window_1nn_kernel(const uint8_t* __restrict__ need, const float* __restrict__ rows_f,
+                  const int* __restrict__ rows_g, const float* __restrict__ w1f,
+                  const int* __restrict__ w1i, const float* __restrict__ w2f,
+                  const int* __restrict__ w2i, const int* __restrict__ anchor,
+                  const int* __restrict__ anchor2, float* __restrict__ d2_out,
+                  int* __restrict__ j_out, int chunk, int W) {
+  __shared__ float4 scol[NN_TILE];  // candidates: x, y, z, group bits
+  __shared__ int spos[NN_TILE];     // their window position
+  __shared__ int srow[NN_SLAB];     // the slab's needy rows, ascending
+  __shared__ int scnt[32];          // candidates per 32-column segment
+  __shared__ float sred_d[WARPS][NN_R];
+  __shared__ int sred_p[WARPS][NN_R];
+  const float qnan = __int_as_float(0x7fc00000);
   const int c = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row0 = blockIdx.x * ROWS_PER_BLOCK;
-  if (need[c] == 0) {
-    for (int t = threadIdx.x; t < ROWS_PER_BLOCK; t += THREADS) {
-      const int r = row0 + t;
-      if (r < chunk) {
-        d2_out[(size_t)c * chunk + r] = INFINITY;
-        col_out[(size_t)c * chunk + r] = -1;
-      }
+  const uint32_t lt = (1u << lane) - 1u;
+  const size_t cbase = (size_t)c * chunk;
+  const int r0 = blockIdx.x * NN_SLAB;
+
+  // ---- the slab's needy rows ----
+  bool needy = false;
+  const int rt = r0 + threadIdx.x;
+  if (threadIdx.x < NN_SLAB && rt < chunk) {
+    needy = need[cbase + rt] != 0;
+    if (!needy) {
+      d2_out[cbase + rt] = INFINITY;
+      j_out[cbase + rt] = -1;
     }
-    return;  // uniform for the whole block
   }
-  const int rbase = row0 + warp * RPW;
+  const uint32_t rbal = __ballot_sync(0xffffffffu, needy);
+  if (lane == 0 && warp < NN_SLAB / 32) scnt[warp] = __popc(rbal);
+  __syncthreads();
+  int total = 0, roff = 0;
+#pragma unroll
+  for (int w = 0; w < NN_SLAB / 32; ++w) {
+    const int n = scnt[w];
+    roff += w < warp ? n : 0;
+    total += n;
+  }
+  if (needy) srow[roff + __popc(rbal & lt)] = rt;
+  if (total == 0) return;  // uniform for the whole block
+  __syncthreads();
+
+  const int ngroups = (total + NN_R - 1) / NN_R;
+  int teams = 1;
+  while (teams < ngroups && teams < WARPS) teams <<= 1;
+  const int tsize = WARPS / teams;
+  const int team = warp / tsize, member = warp % tsize;
+  const int rounds = (ngroups + teams - 1) / teams;
+  const int ntiles = (W + NN_TILE - 1) / NN_TILE;  // per window
+  const int nq = 2 * ntiles;
   const float* rf = rows_f + (size_t)c * 3 * chunk;
-  float x[RPW], y[RPW], z[RPW], bd[RPW];
-  int g[RPW], bc[RPW];
+
+  // this thread's NN_PER columns of tile q (window q / ntiles), loaded into
+  // registers one tile ahead of their use
+  float px[NN_PER], py[NN_PER], pz[NN_PER];
+  int pg[NN_PER], pc[NN_PER];
+  auto fetch = [&](int q) {
+    const int win = q >= ntiles;
+    const int t0 = (q - win * ntiles) * NN_TILE;
+    const float* wf = (win ? w2f : w1f) + (size_t)c * 3 * W;
+    const int* wi = (win ? w2i : w1i) + (size_t)c * 2 * W;
 #pragma unroll
-  for (int k = 0; k < RPW; ++k) {
-    const int r = rbase + k;
-    const bool in = r < chunk;
-    x[k] = in ? rf[r] : 0.f;
-    y[k] = in ? rf[chunk + r] : 0.f;
-    z[k] = in ? rf[2 * chunk + r] : 0.f;
-    g[k] = in ? rows_g[(size_t)c * chunk + r] : 0;
-    bd[k] = INFINITY;
-    bc[k] = -1;
-  }
-  const float* pf = wf + (size_t)c * 3 * W;
-  const int* pi = wi + (size_t)c * 2 * W;
-  for (int t0 = 0; t0 < W; t0 += TILE) {
-    __syncthreads();
-    for (int j = threadIdx.x; j < TILE; j += THREADS) {
-      const int col = t0 + j;
+    for (int i = 0; i < NN_PER; ++i) {
+      const int col = t0 + i * THREADS + threadIdx.x;
       const bool in = col < W;
-      sx[j] = in ? pf[col] : 0.f;
-      sy[j] = in ? pf[W + col] : 0.f;
-      sz[j] = in ? pf[2 * W + col] : 0.f;
-      sg[j] = in ? pi[col] : 0;
-      sm[j] = in ? pi[W + col] : 0;
+      pc[i] = in ? wi[W + col] : 0;
+      px[i] = in ? wf[col] : 0.f;
+      py[i] = in ? wf[W + col] : 0.f;
+      pz[i] = in ? wf[2 * W + col] : 0.f;
+      pg[i] = in ? wi[col] : 0;
     }
-    __syncthreads();
-    const int ncol = min(TILE, W - t0);
-    for (int j = lane; j < ncol; j += 32) {
-      const float cx = sx[j], cy = sy[j], cz = sz[j];
-      const int cg = sg[j];
-      const bool cand = sm[j] > 0;
-      const int col = t0 + j;
+  };
+  fetch(0);
+
+  for (int round = 0; round < rounds; ++round) {
+    const int grp = round * teams + team;
+    float x[NN_R], y[NN_R], z[NN_R], bd[NN_R];
+    int g[NN_R], bp[NN_R];
 #pragma unroll
-      for (int k = 0; k < RPW; ++k) {
-        float d2 = d2_rn(x[k], y[k], z[k], cx, cy, cz);
-        if (!(cand && cg == g[k])) d2 = INFINITY;
-        if (d2 <= bd[k]) {  // columns ascend per lane: later ties win
-          bd[k] = d2;
-          bc[k] = col;
+    for (int k = 0; k < NN_R; ++k) {
+      const int idx = grp * NN_R + k;
+      const bool ok = idx < total;
+      const int r = ok ? srow[idx] : 0;
+      x[k] = ok ? rf[r] : qnan;
+      y[k] = ok ? rf[chunk + r] : 0.f;
+      z[k] = ok ? rf[2 * chunk + r] : 0.f;
+      g[k] = ok ? rows_g[cbase + r] : 0;
+      bd[k] = INFINITY;
+      bp[k] = -1;
+    }
+    const bool active = grp < ngroups;
+
+    for (int q = 0; q < nq; ++q) {
+      const int win = q >= ntiles;
+      const int t0 = (q - win * ntiles) * NN_TILE;
+      // compact the tile's candidates in column order: segment i * 8 + warp
+      // holds columns t0 + 256 i + 32 warp .. + 31
+      uint32_t bl[NN_PER];
+#pragma unroll
+      for (int i = 0; i < NN_PER; ++i) {
+        bl[i] = __ballot_sync(0xffffffffu, pc[i] > 0);
+        if (lane == 0) scnt[i * WARPS + warp] = __popc(bl[i]);
+      }
+      __syncthreads();
+      const int cnt = scnt[lane];
+      int incl = cnt;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int u = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += u;
+      }
+      const int ncand = __shfl_sync(0xffffffffu, incl, 31);
+      const int excl = incl - cnt;
+#pragma unroll
+      for (int i = 0; i < NN_PER; ++i) {
+        const int off = __shfl_sync(0xffffffffu, excl, i * WARPS + warp);
+        if ((bl[i] >> lane) & 1u) {
+          const int pos = off + __popc(bl[i] & lt);
+          scol[pos] = make_float4(px[i], py[i], pz[i], __int_as_float(pg[i]));
+          spos[pos] = win * W + t0 + i * THREADS + threadIdx.x;
         }
       }
-    }
-  }
+      __syncthreads();
+      // the next tile (or the next round's first) loads while this one runs
+      if (q + 1 < nq) {
+        fetch(q + 1);
+      } else if (round + 1 < rounds) {
+        fetch(0);
+      }
+      if (active) {
+        for (int i = member * 32 + lane; i < ncand; i += tsize * 32) {
+          const float4 p = scol[i];
+          const int pp = spos[i];
+          const int cg = __float_as_int(p.w);
 #pragma unroll
-  for (int k = 0; k < RPW; ++k) {
-    float d = bd[k];
-    int cc = bc[k];
-    for (int o = 16; o > 0; o >>= 1) {
-      const float od = __shfl_xor_sync(0xffffffffu, d, o);
-      const int oc = __shfl_xor_sync(0xffffffffu, cc, o);
-      if (od < d || (od == d && oc > cc)) {
-        d = od;
-        cc = oc;
+          for (int k = 0; k < NN_R; ++k) {
+            const float d2 = d2_rn(x[k], y[k], z[k], p.x, p.y, p.z);
+            const bool take = (cg == g[k]) & (d2 <= bd[k]);
+            bd[k] = take ? d2 : bd[k];
+            bp[k] = take ? pp : bp[k];
+          }
+        }
+      }
+      // the next tile's counts overwrite scnt only after every warp passed
+      // the barrier above; its columns overwrite scol after the next one
+    }
+
+    // each warp's best per row (lane k keeps row k), then the team's merge
+    float rd = INFINITY;
+    int rp = -1;
+#pragma unroll
+    for (int k = 0; k < NN_R; ++k) {
+      float d = bd[k];
+      int p = bp[k];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        const float od = __shfl_xor_sync(0xffffffffu, d, o);
+        const int op = __shfl_xor_sync(0xffffffffu, p, o);
+        if (od < d || (od == d && op > p)) {
+          d = od;
+          p = op;
+        }
+      }
+      if (lane == k) {
+        rd = d;
+        rp = p;
       }
     }
-    const int r = rbase + k;
-    if (lane == 0 && r < chunk) {
-      d2_out[(size_t)c * chunk + r] = d;
-      col_out[(size_t)c * chunk + r] = cc;
+    if (lane < NN_R) {
+      sred_d[warp][lane] = rd;
+      sred_p[warp][lane] = rp;
     }
+    __syncthreads();
+    if (threadIdx.x < teams * NN_R) {
+      const int tm = threadIdx.x / NN_R, k = threadIdx.x % NN_R;
+      const int idx = (round * teams + tm) * NN_R + k;
+      if (idx < total) {
+        float d = INFINITY;
+        int p = -1;
+        for (int m = 0; m < tsize; ++m) {
+          const float od = sred_d[tm * tsize + m][k];
+          const int op = sred_p[tm * tsize + m][k];
+          if (od < d || (od == d && op > p)) {
+            d = od;
+            p = op;
+          }
+        }
+        const int r = srow[idx];
+        const bool found = d < INFINITY;
+        d2_out[cbase + r] = found ? d : INFINITY;
+        j_out[cbase + r] = !found ? -1 : p < W ? anchor[c] + p : anchor2[c] + (p - W);
+      }
+    }
+    // sred is written again only after the next round's tile barriers
   }
 }
 
@@ -607,11 +767,12 @@ int pbnet_masked_window_match_pick(const int* bits1, const int* bits2, const int
   return (int)cudaGetLastError();
 }
 
-int pbnet_window_1nn(const int* need, const float* rows_f, const int* rows_g,
-                     const float* wf, const int* wi, float* d2, int* col, int nchunks,
+int pbnet_window_1nn(const unsigned char* need, const float* rows_f, const int* rows_g,
+                     const float* w1f, const int* w1i, const float* w2f, const int* w2i,
+                     const int* anchor, const int* anchor2, float* d2, int* j, int nchunks,
                      int chunk, int W, void* stream) {
-  window_1nn_kernel<<<grid_for(nchunks, chunk), THREADS, 0, (cudaStream_t)stream>>>(
-      need, rows_f, rows_g, wf, wi, d2, col, chunk, W);
+  window_1nn_kernel<<<grid_for(nchunks, chunk, NN_SLAB), THREADS, 0, (cudaStream_t)stream>>>(
+      need, rows_f, rows_g, w1f, w1i, w2f, w2i, anchor, anchor2, d2, j, chunk, W);
   return (int)cudaGetLastError();
 }
 

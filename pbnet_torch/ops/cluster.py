@@ -16,8 +16,8 @@ The algorithm, step for step as the JAX package runs it:
    among their HP neighbors                           (kernel B3)
 7. clusters ordered by (group, first original index); small ones demoted
 8. unassigned points take the cluster of the nearest assigned same-group
-   point on ORIGINAL coords: a banded pass per window (B4) proves most rows,
-   a compacted exact pass (cap ``nn_exact_cap``, overflow in
+   point on ORIGINAL coords: one banded pass over both windows (B4) proves
+   most rows, a compacted exact pass (cap ``nn_exact_cap``, overflow in
    ``nn_overflow``) settles the rest
 9. per-cluster mean of shifted coords
 
@@ -283,27 +283,24 @@ def binary_cluster(
     orig_s = orig[perm]
     assigned = cid_filtered >= 0
     need = (~assigned) & valid_s
-    need_c = pad_to(need, False).reshape(nchunks, chunk).sum(1, dtype=torch.int32)
     orig_p = pad_to(orig_s, 1e9)
     assigned_p = pad_to(assigned, False)
     cid_p = pad_to(cid_filtered, -1)
     l1_pd = pad_to(l1_s, inf)
-    rows_q = rows3(orig_p)
 
-    def band_1nn(idx, anc, fresh):
-        cass = assigned_p[idx] if fresh is None else assigned_p[idx] & fresh
-        wiq = torch.stack([g_p[idx], cass.to(torch.int32)], 1)
-        bd2, col = wk.window_1nn(rows_q, rg, wplanes(orig_p, idx), wiq, need_c)
-        return bd2, anc[:, None] + col  # window col -> padded sorted row
-
-    bd2_1, j1 = band_1nn(w_idx, anchor, None)
-    bd2_2, j2b = band_1nn(w_idx2, anchor2, fresh2)
-    take2 = bd2_2 <= bd2_1  # right fresh columns are later: ties -> right
-    best_d2 = torch.where(take2, bd2_2, bd2_1)
-    j_band = torch.where(take2, j2b, j1)
+    # B4, one launch over both windows (the right one's fresh columns only):
+    # the least d2 per needy row, the later window column on a tie (right
+    # fresh columns hold later sorted rows), as padded sorted row j
+    wiq = [torch.stack([g_p[idx], (assigned_p[idx] if fresh is None
+                                   else assigned_p[idx] & fresh).to(torch.int32)], 1)
+           for idx, fresh in windows]
+    best_d2, j_band = wk.window_1nn(
+        rows3(orig_p), rg, pad_to(need, False).reshape(nchunks, chunk),
+        wplanes(orig_p, w_idx), wiq[0], wplanes(orig_p, w_idx2), wiq[1],
+        anchor.to(torch.int32), anchor2.to(torch.int32))
     found_band = torch.isfinite(best_d2)
     cid_band = torch.where(
-        found_band, cid_p[torch.clamp(j_band, 0, npad - 1)], -1).reshape(npad)[:n]
+        found_band, cid_p[torch.clamp(j_band, 0, npad - 1).long()], -1).reshape(npad)[:n]
     found_band_f = found_band.reshape(npad)[:n]
 
     # provable-exactness margin: l1 distance to the union's edges

@@ -66,7 +66,7 @@ def _library():
         lib.pbnet_neighbor_pack.argtypes = [P, P, P, P, P, P, F, P, P, P, I, I, I, P]
         lib.pbnet_masked_window_reduce.argtypes = [P, P, P, P, P, I, I, I, I, P]
         lib.pbnet_masked_window_border.argtypes = [P, P, P, P, P, P, P, P, I, I, I, P]
-        lib.pbnet_window_1nn.argtypes = [P, P, P, P, P, P, P, I, I, I, P]
+        lib.pbnet_window_1nn.argtypes = [P] * 11 + [I, I, I, P]
         lib.pbnet_masked_window_match_pick.argtypes = [P, P, P, P, P, P, P, P, I, I, I, P]
         for fn in (lib.pbnet_neighbor_pack, lib.pbnet_masked_window_reduce,
                    lib.pbnet_masked_window_border, lib.pbnet_window_1nn,
@@ -297,55 +297,68 @@ def masked_window_match_pick(bits1, bits2, fw1, fw2, lw1, lw2, target):
 # ---------------------------------------------------------------------------
 # B4 window_1nn
 # ---------------------------------------------------------------------------
-def window_1nn_plain(rows_f, rows_g, wf, wi, need):
-    """Masked nearest candidate per row over one window.
+def window_1nn_plain(rows_f, rows_g, need, w1f, w1i, w2f, w2i, anchor, anchor2):
+    """Masked nearest candidate per needy row over both windows of its chunk.
 
     rows_f (nchunks, 3, chunk) f32 query xyz; rows_g (nchunks, chunk) int32
-    group; wf (nchunks, 3, W) f32 window xyz; wi (nchunks, 2, W) int32
-    (group, candidate flag); need (nchunks,) int32 needy-row counts.
-    Candidates: flag set and same group.  Returns (d2, col): the least d2
-    and the LARGEST window column attaining it; a row without candidates
-    gets (inf, W-1); a chunk with need == 0 gets (inf, -1) everywhere.
+    group; need (nchunks, chunk) bool, the rows that want an answer; w1f,
+    w2f (nchunks, 3, W) f32 window xyz; w1i, w2i (nchunks, 2, W) int32
+    (group, candidate flag); anchor, anchor2 (nchunks,) int32, the padded
+    sorted row of each window's column 0.  Candidates: flag set and the
+    row's group.  Order: the least d2, and among ties the LAST column in
+    window order (the left window's columns, then the right window's): the
+    JAX package's `<=` scan in each window and its right-wins merge of the
+    two.  Returns (d2, j) (nchunks, chunk): f32 d2, and int32 j = anchor +
+    col or anchor2 + col of the winning column.  A row that is not needy, or
+    has no candidate, gets (inf, -1): clustering reads only needy rows.
     """
     nchunks, _, chunk = rows_f.shape
-    W = wf.shape[2]
+    W = w1f.shape[2]
     dev = rows_f.device
-    cols = torch.arange(W, dtype=torch.int32, device=dev)
-    d2s, colss = [], []
-    for c, nd in enumerate(need.tolist()):
-        if nd == 0:
-            d2s.append(torch.full((chunk,), float("inf"), device=dev))
-            colss.append(torch.full((chunk,), -1, dtype=torch.int32, device=dev))
+    d2_out = torch.full((nchunks, chunk), float("inf"), device=dev)
+    j_out = torch.full((nchunks, chunk), -1, dtype=torch.int32, device=dev)
+    order = torch.arange(2 * W, dtype=torch.int32, device=dev)
+    for c in range(nchunks):
+        rows = need[c].nonzero()[:, 0]
+        if rows.numel() == 0:
             continue
-        rx, ry, rz = (rows_f[c, a][:, None] for a in range(3))
-        d2 = sq_dist(rx, ry, rz, wf[c, 0][None], wf[c, 1][None], wf[c, 2][None])
-        ok = (wi[c, 1][None] > 0) & (rows_g[c][:, None] == wi[c, 0][None])
+        wf = torch.cat([w1f[c], w2f[c]], 1)
+        wi = torch.cat([w1i[c], w2i[c]], 1)
+        rx, ry, rz = (rows_f[c, a, rows][:, None] for a in range(3))
+        d2 = sq_dist(rx, ry, rz, wf[0][None], wf[1][None], wf[2][None])
+        ok = (wi[1][None] > 0) & (rows_g[c, rows][:, None] == wi[0][None])
         d2 = torch.where(ok, d2, float("inf"))
         best = d2.amin(1)
-        col = torch.where(d2 == best[:, None], cols[None], -1).amax(1)
-        d2s.append(best)
-        colss.append(col)
-    return torch.stack(d2s), torch.stack(colss)
+        p = torch.where(d2 == best[:, None], order[None], -1).amax(1)
+        j = torch.where(p < W, anchor[c] + p, anchor2[c] + (p - W)).to(torch.int32)
+        found = torch.isfinite(best)
+        d2_out[c, rows] = best
+        j_out[c, rows] = torch.where(found, j, -1)
+    return d2_out, j_out
 
 
-def window_1nn(rows_f, rows_g, wf, wi, need):
-    """See :func:`window_1nn_plain`; CUDA tensors run the kernel."""
+def window_1nn(rows_f, rows_g, need, w1f, w1i, w2f, w2i, anchor, anchor2):
+    """See :func:`window_1nn_plain`; CUDA tensors run the kernel (one launch
+    for both windows)."""
     if rows_f.device.type == "cpu":
-        return window_1nn_plain(rows_f, rows_g, wf, wi, need)
+        return window_1nn_plain(rows_f, rows_g, need, w1f, w1i, w2f, w2i, anchor, anchor2)
     nchunks, _, chunk = rows_f.shape
-    W = wf.shape[2]
+    W = w1f.shape[2]
     if nchunks > 65535:
         raise ValueError(f"window_1nn: nchunks={nchunks} > 65535")
     dev = rows_f.device
     _check("rows_f", rows_f, torch.float32, (nchunks, 3, chunk), dev)
     _check("rows_g", rows_g, torch.int32, (nchunks, chunk), dev)
-    _check("wf", wf, torch.float32, (nchunks, 3, W), dev)
-    _check("wi", wi, torch.int32, (nchunks, 2, W), dev)
-    _check("need", need, torch.int32, (nchunks,), dev)
+    _check("need", need, torch.bool, (nchunks, chunk), dev)
+    for nm, t, dt, planes in (("w1f", w1f, torch.float32, 3), ("w1i", w1i, torch.int32, 2),
+                              ("w2f", w2f, torch.float32, 3), ("w2i", w2i, torch.int32, 2)):
+        _check(nm, t, dt, (nchunks, planes, W), dev)
+    _check("anchor", anchor, torch.int32, (nchunks,), dev)
+    _check("anchor2", anchor2, torch.int32, (nchunks,), dev)
     d2 = torch.empty((nchunks, chunk), dtype=torch.float32, device=dev)
-    col = torch.empty((nchunks, chunk), dtype=torch.int32, device=dev)
+    j = torch.empty((nchunks, chunk), dtype=torch.int32, device=dev)
     lib = _library()
     _launch("window_1nn", lib.pbnet_window_1nn,
-            _ptr(need), _ptr(rows_f), _ptr(rows_g), _ptr(wf), _ptr(wi),
-            _ptr(d2), _ptr(col), nchunks, chunk, W)
-    return d2, col
+            _ptr(need), _ptr(rows_f), _ptr(rows_g), _ptr(w1f), _ptr(w1i), _ptr(w2f), _ptr(w2i),
+            _ptr(anchor), _ptr(anchor2), _ptr(d2), _ptr(j), nchunks, chunk, W)
+    return d2, j

@@ -23,6 +23,10 @@ linear_sem.3.linear.{weight,bias}       linear_sem/linear2/Dense_0/*
 ``convert_state_dict`` gives the JAX package's ``(params, batch_stats)``
 trees (the same rename tables); ``to_state_dict`` carries them through
 ``convert.state_dict_from_jax`` into the port's names.
+``to_reference_state_dict`` is the inverse (the port's names -> the
+reference's, from the same tables), and ``write_reference_pth`` saves it as
+a reference ``.pth``, for the checkpoint-parity harness
+(``tools/parity_eval.py``) on weights made here.
 
 Kernel offsets: the port enumerates them x-major (dx slowest, dz fastest;
 ``core/topology.kernel_offsets``), MinkowskiEngine x-fastest.
@@ -64,6 +68,8 @@ _BN_RENAME = {
     "bntr4": "bntr4", "bntr5": "bntr5", "bntr6": "bntr6", "bntr7": "bntr7",
     "bntr1": "bntr1",
 }
+# head layers: the port's -> the reference's nn.Sequential entries
+_HEAD_RENAME = {"linear1": "0.linear", "norm": "1.bn", "prelu": "2", "linear2": "3.linear"}
 _BN_LEAF = {"weight": (0, "scale"), "bias": (0, "bias"), "running_mean": (1, "mean"),
             "running_var": (1, "var")}
 
@@ -179,3 +185,65 @@ def merge_into_model(model: torch.nn.Module, state_dict: dict) -> list[str]:
     matched = {k: v for k, v in state_dict.items() if k in own and own[k].shape == v.shape}
     model.load_state_dict(matched, strict=False)
     return sorted(set(state_dict) - set(matched))
+
+
+def to_reference_state_dict(state_dict: dict,
+                            me_order: str = "x_fastest") -> dict[str, torch.Tensor]:
+    """The port's ``state_dict`` (a PBNet with basic-block UNets) -> the
+    reference's: MinkowskiEngine module names under ``module.``, sparse-conv
+    kernels in ME's offset order (``me_order``), dense kernels as ME stores
+    them.  ``to_state_dict`` maps it back to the same tensors.  Raises on a
+    name the reference format has no place for."""
+    inv_conv = {v: k for k, v in _CONV_RENAME.items()}
+    inv_bn = {v: k for k, v in _BN_RENAME.items()}
+    bn_leaves = tuple(_BN_LEAF)
+    out = {}
+
+    def put(name, value):
+        out["module." + name] = torch.from_numpy(np.ascontiguousarray(value))
+
+    def me_kernel(v):
+        k = round(v.shape[0] ** (1 / 3))
+        return v[np.argsort(me_offset_permutation(k, me_order))]
+
+    for name, t in state_dict.items():
+        v = t.detach().cpu().numpy()
+        parts = name.split(".")
+        top, leaf = parts[0], parts[-1]
+        if top in UNETS and len(parts) == 3 and parts[1] in inv_conv:
+            ref = f"{top}.{inv_conv[parts[1]]}"
+            if leaf == "kernel":
+                put(ref + ".kernel", me_kernel(v))
+            elif leaf == "weight":  # a dense 1x1 conv: ME keeps (Cin, Cout)
+                put(ref + ".kernel", v.T)
+            elif leaf == "bias":
+                put(ref + ".bias", v)
+            else:
+                raise KeyError(name)
+        elif top in UNETS and len(parts) == 3 and parts[1] in inv_bn and leaf in bn_leaves:
+            put(f"{top}.{inv_bn[parts[1]]}.bn.{leaf}", v)
+        elif top in UNETS and len(parts) == 4 and parts[1].startswith("block"):
+            base, idx = parts[1].rsplit("_", 1)
+            ref, inner = f"{top}.{base}.{idx}", parts[2]
+            if inner in ("conv1", "conv2") and leaf == "kernel":
+                put(f"{ref}.{inner}.kernel", me_kernel(v))
+            elif inner in ("norm1", "norm2") and leaf in bn_leaves:
+                put(f"{ref}.{inner}.bn.{leaf}", v)
+            elif inner == "downsample_conv" and leaf == "weight":
+                put(f"{ref}.downsample.0.kernel", v.T)
+            elif inner == "downsample_norm" and leaf in bn_leaves:
+                put(f"{ref}.downsample.1.bn.{leaf}", v)
+            else:
+                raise KeyError(name)
+        elif top in HEADS and len(parts) == 3 and parts[1] in _HEAD_RENAME:
+            put(f"{top}.{_HEAD_RENAME[parts[1]]}.{'weight' if leaf == 'alpha' else leaf}", v)
+        else:
+            raise KeyError(f"{name}: no place in the reference format")
+    return out
+
+
+def write_reference_pth(state_dict: dict, path: str, me_order: str = "x_fastest") -> None:
+    """Save ``to_reference_state_dict(state_dict)`` as a reference ``.pth``
+    (``{"model": ..., "optimizer": {}}``), which ``load_reference_checkpoint``
+    reads back to the same tensors."""
+    torch.save({"model": to_reference_state_dict(state_dict, me_order), "optimizer": {}}, path)

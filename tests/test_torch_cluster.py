@@ -99,6 +99,32 @@ def test_exact_pass_row_blocks_match_jax(rng, monkeypatch):
     assert blocks.count((1, 1)) > 1  # the exact pass ran, one row per block
 
 
+@pytest.mark.parametrize("nn_exact_cap", [None, 8])
+def test_needy_heavy_matches_jax(rng, monkeypatch, nn_exact_cap):
+    """Offsets with 6 cm of noise and many scattered noise points leave a
+    large share of the rows without a cluster: the one-launch B4 answers
+    needy rows spread over most chunks (and, at a small exact-pass cap, the
+    rest overflow).  Every field equals JAX's."""
+    masks = []
+    window_1nn = tcl.wk.window_1nn
+
+    def spy(*a):
+        masks.append(a[2].clone())
+        return window_1nn(*a)
+
+    monkeypatch.setattr(tcl.wk, "window_1nn", spy)
+    shifted, orig, sem, batch = make_scene(rng, n_noise=300)
+    shifted = (shifted + rng.randn(*shifted.shape) * 0.06).astype(np.float32)
+    args = (shifted, orig, sem, batch, np.ones(len(sem), bool))
+    ref, got = run_both(args, radius=0.1, min_pts=10, para_f=0.05, cluster_cap=32,
+                        band=256, chunk=64, nn_exact_cap=nn_exact_cap)
+    assert_same(ref, got)
+    (need,) = masks  # one B4 call per binary_cluster
+    assert int(need.sum()) > len(sem) // 4
+    assert int(need.any(1).sum()) >= need.shape[0] - 1 and int(got.num_clusters) > 0
+    assert (int(got.nn_overflow) > 0) == (nn_exact_cap is not None)
+
+
 def test_no_clusters_when_sparse(rng):
     n = 64
     shifted = (rng.rand(n, 3) * 10).astype(np.float32)

@@ -11,6 +11,10 @@ the hand-written ME fragments of ``tests/test_convert_me_fixture.py``.
 * A ``.pth`` written with ``torch.save`` loads through
   ``load_reference_checkpoint``; ``merge_into_model`` reports the fragment
   fully matched.
+* ``write_reference_pth`` inverts the reader: the complete checkpoint,
+  converted, written back in the reference's format and read again, gives
+  the same tensors, for both offset orders; a name with no place in the
+  format raises.
 * An ME checkpoint of the Mini_Unet trio, converted by each package and
   loaded into each package's PBNet: stage-1 outputs within 1e-4 of their
   largest magnitude (f32 conv operands; the hand-made weights are larger
@@ -89,6 +93,16 @@ def test_pth_loads_through_load_reference_checkpoint(tmp_path):
     assert tcc.merge_into_model(model, got) == []
     want = sd["MEUnet.conv0p1s1.kernel"][tcc.me_offset_permutation(5)]
     assert torch.equal(model.MEUnet.conv0.kernel, torch.from_numpy(want))
+
+
+@pytest.mark.parametrize("order", ORDERS)
+def test_reference_writer_inverts_the_reader(order, tmp_path):
+    got = tcc.to_state_dict(make_me_full_state_dict(np.random.RandomState(2)), me_order=order)
+    path = tmp_path / "000000002.pth"
+    tcc.write_reference_pth(got, str(path), me_order=order)
+    assert_state_dicts_equal(tcc.load_reference_checkpoint(str(path), me_order=order), got)
+    with pytest.raises(KeyError):
+        tcc.to_reference_state_dict({"MEUnet.conv0.scale": torch.zeros(1)})
 
 
 def me_mini_trio(rng):

@@ -7,7 +7,10 @@ output magnitude: both multiply the same bf16-rounded operands in f32, only
 the order of the sums differs (tensor cores against a full-f32 matmul,
 TF32 off); two launches on the same inputs must equal bit for bit (the slot
 split adds its partial tiles in a fixed order).  Every other kernel must
-equal its plain version exactly.
+equal its plain version exactly: B4 also at the edges of its design (every
+row needy, a few per chunk, only a chunk's last row, a chunk that is not a
+multiple of the block's slab, needy rows scattered over a 600-row chunk,
+windows without candidates), and clustering launches it once per call.
 
 The data path on the card: ``vertex_normals`` within 1e-6 of the CPU's,
 and ``engine.evaluate`` over decoded ScanNet-layout scenes (colour-oracle
@@ -79,6 +82,24 @@ def tiles(rng, dev, nchunks=5, chunk=96, W=2080):
     return t, rows_f, rows_i, wins
 
 
+def b4_args(rng, t, rows_f, rows_i, w1f, w2f, need=None, flags=(0.3, 0.3)):
+    """B4's arguments over two windows laid out as clustering lays them out
+    (the right one flags only columns past the left one); ``need``: a bool
+    mask (nchunks, chunk), by default about a third of the rows."""
+    nchunks, _, chunk = rows_f.shape
+    W = w1f.shape[2]
+    anchor = (np.arange(nchunks) * 32).astype(np.int32)
+    anchor2 = anchor + np.int32(W // 2)
+    fresh = anchor2[:, None] + np.arange(W) >= anchor[:, None] + W
+    wi = [np.stack([rng.randint(0, 3, (nchunks, W)), rng.rand(nchunks, W) < f],
+                   1).astype(np.int32) for f in flags]
+    wi[1][:, 1] &= fresh
+    if need is None:
+        need = rng.rand(nchunks, chunk) < 0.3
+    return (rows_f, rows_i[:, 0].contiguous(), t(need), w1f, t(wi[0]), w2f, t(wi[1]),
+            t(anchor), t(anchor2))
+
+
 def test_kernels_match_plain(dev):
     rng = np.random.RandomState(0)
     t, rows_f, rows_i, wins = tiles(rng, dev)
@@ -96,12 +117,8 @@ def test_kernels_match_plain(dev):
     for g, w in zip(wk.masked_window_border(b1, b2, *f, v[2], v[3]),
                     wk.masked_window_border_plain(b1, b2, *f, v[2], v[3])):
         assert torch.equal(g, w)
-    wi = t(np.stack([rng.randint(0, 3, (nchunks, W)), rng.rand(nchunks, W) < 0.3],
-                    1).astype(np.int32))
-    need = t(np.array([3, 0, 1, 2, 0], np.int32))
-    rg = rows_i[:, 0].contiguous()
-    for g, w in zip(wk.window_1nn(rows_f, rg, wins[0], wi, need),
-                    wk.window_1nn_plain(rows_f, rg, wins[0], wi, need)):
+    args = b4_args(rng, t, rows_f, rows_i, wins[0], wins[2])
+    for g, w in zip(wk.window_1nn(*args), wk.window_1nn_plain(*args)):
         assert torch.equal(g.view(torch.int32), w.view(torch.int32))
     after = wk.LAUNCHES
     assert after["neighbor_pack"] == before["neighbor_pack"] + 1
@@ -129,8 +146,13 @@ def test_cluster_cuda_matches_cpu(dev):
     valid = np.ones(len(sem), bool)
     kw = dict(radius=0.05, min_pts=10, cluster_cap=16, band=512, chunk=256)
     args = (shifted, orig, sem, batch, valid)
+    before = dict(wk.LAUNCHES)
     got = cl.binary_cluster(*(torch.from_numpy(a).to(dev) for a in args),
                             count_mean=torch.from_numpy(COUNT_MEAN).to(dev), **kw)
+    # one launch of B1, B3 and B4 per call
+    assert {k: wk.LAUNCHES[k] - before[k] for k in
+            ("neighbor_pack", "masked_window_border", "window_1nn")} == dict.fromkeys(
+        ("neighbor_pack", "masked_window_border", "window_1nn"), 1)
     want = cl.binary_cluster(*(torch.from_numpy(a) for a in args),
                              count_mean=torch.from_numpy(COUNT_MEAN), **kw)
     for f in want._fields:
@@ -161,6 +183,48 @@ def test_match_pick_matches_plain(dev):
     assert (got[:, :7] == -1).all() and (got >= 0).any()
     best, root = wk.masked_window_border(b1, b2, *fw, *lw)
     assert torch.equal(wk.masked_window_match_pick(b1, b2, *fw, *lw, best), root)
+
+
+# B4 at the edges of its design: every row needy (two rounds of 4-row groups
+# per 64-row slab), a few needy rows per chunk, only a chunk's last row, a
+# chunk that is not a multiple of the 64-row slab, one needy row in ten of a
+# 600-row chunk (a few in every slab, the last one ragged), and windows whose
+# columns are all non-candidates (one window, then both); W = 2080 is two
+# full 1024-column tiles and a ragged one
+@pytest.mark.parametrize("case,chunk", [("all", 256), ("few", 256), ("last_row", 256),
+                                        ("ragged_chunk", 200), ("scattered", 600),
+                                        ("no_cand_left", 256), ("no_cand", 256)])
+def test_window_1nn_edges(dev, case, chunk):
+    rng = np.random.RandomState(7)
+    t, rows_f, rows_i, wins = tiles(rng, dev, nchunks=4, chunk=chunk)
+    nchunks = rows_f.shape[0]
+    need = np.zeros((nchunks, chunk), bool)
+    if case == "all":
+        need[:] = True
+    elif case == "few":
+        for c in range(nchunks - 1):  # the last chunk has none
+            need[c, rng.choice(chunk, 1 + c, replace=False)] = True
+    elif case == "last_row":
+        need[:, -1] = True
+    elif case == "scattered":
+        need[:] = rng.rand(nchunks, chunk) < 0.1
+    else:
+        need[:] = rng.rand(nchunks, chunk) < 0.5
+    flags = {"no_cand_left": (0.0, 0.3), "no_cand": (0.0, 0.0)}.get(case, (0.3, 0.3))
+    args = b4_args(rng, t, rows_f, rows_i, wins[0], wins[2], need, flags)
+    before = wk.LAUNCHES["window_1nn"]
+    got = wk.window_1nn(*args)
+    want = wk.window_1nn_plain(*args)
+    torch.cuda.synchronize()
+    assert wk.LAUNCHES["window_1nn"] == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    found = torch.isfinite(got[0])
+    assert bool((found <= args[2]).all())
+    if case == "no_cand":
+        assert not found.any() and bool((got[1] == -1).all())
+    else:
+        assert int(found.sum()) >= int(args[2].sum()) // 2
 
 
 def banded_map(rng, m_out, m_in, K, kz, jitter, present=0.7):

@@ -1,8 +1,8 @@
 """The port stands alone: no JAX, no pbnet_tpu, no silent CPU fallback.
 
 * Importing pbnet_torch (every module: the eval, training, data-parallel,
-  classifier, checkpoint-converter, plotting and checkpoint ones and the
-  command line included), building and running a
+  classifier, checkpoint-converter, checkpoint-parity, plotting and
+  checkpoint ones and the command line included), building and running a
   model with banded convs, running one CPU train step, segmenting a mesh and
   reading a JAX-package checkpoint leaves ``jax``, ``flax``, ``optax``,
   ``msgpack`` and ``pbnet_tpu`` out of ``sys.modules`` (checked in a fresh
@@ -68,7 +68,7 @@ def test_import_and_run_leave_jax_out(tmp_path):
         "from pbnet_torch.ops import iou\n"
         "from pbnet_torch.parallel import distributed, mesh, train_step\n"
         "from pbnet_torch.nn import resnet\n"
-        "from pbnet_torch.tools import convert_checkpoint, plot\n"
+        "from pbnet_torch.tools import convert_checkpoint, parity_eval, plot\n"
         "import dataclasses\n"
         "sh = dataclasses.replace(synthetic.GRAFT_SHAPES, onehot_tm=128, onehot_spans=(256, 128),\n"
         "                         onehot_spans_local=(256, 128))\n"

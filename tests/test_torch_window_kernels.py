@@ -195,27 +195,79 @@ def test_masked_window_border_matches_pallas(rng, interpret, label_of_first):
     np.testing.assert_array_equal(gr.numpy(), np.asarray(root))
 
 
-def test_window_1nn_matches_pallas(rng, interpret):
-    nchunks, chunk, W = 4, 64, 128
-    rows_f = (rng.randint(0, 6, (nchunks, 3, chunk)) / 8.0).astype(np.float32)
-    rows_g = rng.randint(0, 4, (nchunks, chunk)).astype(np.int32)
-    rows_g[:, :3] = 9  # a group no candidate has: empty rows -> (inf, W-1)
-    wf = (rng.randint(0, 6, (nchunks, 3, W)) / 8.0).astype(np.float32)
-    wi = np.stack([rng.randint(0, 4, (nchunks, W)),
-                   (rng.rand(nchunks, W) < 0.3).astype(np.int64)], 1).astype(np.int32)
-    need = np.array([5, 0, 1, 0], np.int32)  # chunks 1 and 3 skip: (inf, -1)
+def window_pair(rng, layout, nchunks=4, chunk=64, W=128):
+    """Rows, a needy-row mask and two windows laid out as clustering lays
+    them out: the right window starts at ``anchor2 >= anchor`` and flags
+    only its fresh columns (rows past the left window).  ``layout``:
+    "contiguous" (the windows overlap), "disjoint" (a gap between them) or
+    "one_window" (anchor2 == anchor: no fresh column).  Coordinates on a 1/8
+    grid, and copies of left candidates among the right fresh columns, give
+    ties in d2 inside and across the windows; rows of group 9 have no
+    candidate; chunk 1 has no needy row, chunk 3 a needy last row."""
+    def coords(*shape):
+        return (rng.randint(0, 6, shape) / 8.0).astype(np.float32)
 
-    wi3 = np.concatenate([wi, wi[:, :1]], 1)  # Pallas takes (group, cand, unused)
-    rows_i3 = np.stack([rows_g] * 3, 1)
-    d2, col = pk.window_1nn(jnp.asarray(rows_f), jnp.asarray(rows_i3),
-                            jnp.asarray(lane(wf)), jnp.asarray(lane(wi3)),
-                            need=jnp.asarray(need))
-    t = torch.from_numpy
-    gd, gc = wk.window_1nn(t(rows_f), t(rows_g), t(wf), t(wi), t(need))
-    np.testing.assert_array_equal(gd.numpy().view(np.int32), np.asarray(d2).view(np.int32))
-    np.testing.assert_array_equal(gc.numpy(), np.asarray(col))
-    assert (gc.numpy()[[1, 3]] == -1).all()
-    assert (gc.numpy()[0, :3] == W - 1).all() and np.isinf(gd.numpy()[0, :3]).all()
+    rows_f = coords(nchunks, 3, chunk)
+    rows_g = rng.randint(0, 4, (nchunks, chunk)).astype(np.int32)
+    rows_g[:, :3] = 9
+    need = rng.rand(nchunks, chunk) < 0.3
+    need[:, :2] = True
+    need[1] = False
+    need[3, -1] = True
+    anchor = (np.arange(nchunks) * 32).astype(np.int32)
+    shift = {"contiguous": 64, "disjoint": W + 32, "one_window": 0}[layout]
+    anchor2 = anchor + np.int32(shift)
+    wins = []
+    for _ in range(2):
+        wf = coords(nchunks, 3, W)
+        wi = np.stack([rng.randint(0, 4, (nchunks, W)),
+                       (rng.rand(nchunks, W) < 0.3).astype(np.int64)], 1).astype(np.int32)
+        wins += [wf, wi]
+    w1f, w1i, w2f, w2i = wins
+    fresh = anchor2[:, None] + np.arange(W) >= anchor[:, None] + W
+    for c in range(nchunks):  # left candidates copied onto fresh right columns
+        cols = np.nonzero(fresh[c])[0]
+        for jr, jl in zip(cols[:16], rng.choice(np.nonzero(w1i[c, 1])[0], 16)):
+            w2f[c, :, jr] = w1f[c, :, jl]
+            w2i[c, :, jr] = w1i[c, :, jl]
+    w2i[:, 1] &= fresh
+    return rows_f, rows_g, need, w1f, w1i, w2f, w2i, anchor, anchor2
+
+
+def jax_window_1nn_merged(rows_f, rows_g, need, w1f, w1i, w2f, w2i, anchor, anchor2):
+    """Two Pallas window_1nn calls and the JAX package's merge
+    (pbnet_tpu/ops/cluster.py:667-672)."""
+    rows_i3 = jnp.asarray(np.stack([rows_g] * 3, 1))
+    need_c = jnp.asarray(need.sum(1).astype(np.int32))
+    out = []
+    for wf, wi in ((w1f, w1i), (w2f, w2i)):
+        wi3 = np.concatenate([wi, wi[:, :1]], 1)  # (group, cand, unused)
+        out.append(pk.window_1nn(jnp.asarray(rows_f), rows_i3, jnp.asarray(lane(wf)),
+                                 jnp.asarray(lane(wi3)), need=need_c))
+    (bd2_1, c1), (bd2_2, c2) = (tuple(np.asarray(a) for a in o) for o in out)
+    take2 = bd2_2 <= bd2_1
+    best = np.where(take2, bd2_2, bd2_1)
+    j = np.where(take2, anchor2[:, None] + c2, anchor[:, None] + c1)
+    return best, j, (bd2_1, bd2_2)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "disjoint", "one_window"])
+def test_window_1nn_matches_pallas(rng, interpret, layout):
+    """The one-launch B4 (plain version) equals JAX's two window_1nn calls
+    plus its merge: on needy rows d2 bit for bit and j wherever d2 is
+    finite; rows that are not needy, or have no candidate, get (inf, -1)."""
+    args = window_pair(rng, layout)
+    need = args[2]
+    best, j, (bd2_1, bd2_2) = jax_window_1nn_merged(*args)
+    gd, gj = (a.numpy() for a in wk.window_1nn(*(torch.from_numpy(a) for a in args)))
+    np.testing.assert_array_equal(gd[need].view(np.int32), best[need].view(np.int32))
+    fin = need & np.isfinite(best)
+    np.testing.assert_array_equal(gj[fin], j[fin])
+    assert (gj[need & ~fin] == -1).all() and (~fin[:, :3] | ~need[:, :3]).all()
+    assert np.isinf(gd[~need]).all() and (gj[~need] == -1).all()
+    assert fin.sum() > 20 and not need[1].any()
+    if layout != "one_window":  # right-window winners, ties across windows among them
+        assert (fin & (bd2_2 <= bd2_1)).any() and (fin & (bd2_2 == bd2_1)).any()
 
 
 def test_pack_unpack_roundtrip(rng):
