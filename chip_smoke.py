@@ -184,9 +184,31 @@ exits non-zero — no phase catches its own failure):
              magnitude; gradients under phase 8's gates (the head's
              instance norm over a few voxels per room amplifies rounding:
              at 1 cm ResNet50's gradients moved by 1.2e-2 in relative L2).
+17. bench     the port's benchmark entry point as a user runs it,
+             ``python -m pbnet_torch.bench --config gather`` and ``--config
+             banded``, each in a process of its own (phases, timing and
+             output: ``pbnet_torch/bench.py``).  Gates: the headline (the
+             last stdout line) finite and > 0; in each of the 10 timed
+             requests (one stderr line each, the subprocess's own launch
+             counters zeroed before it) clusters > 0, zero overflow, B1-B4
+             launched, B4 once per clustering call, B6 in the banded run
+             only, B5 never; 0 < mfu <= 1 and 0 < mfu_f32 <= 1; the executed
+             GEMM operations over the GEMM family's device time within the
+             f32 peak (a count the card could not have done is a counting
+             fault); the production extent's ids equal the headline's; the
+             useful count of stages 1 and 2 equal in both runs (the same
+             maps), and of stage 3 too where both kept the same points.
+             Headline, stage split, device busy and idle share, mfu,
+             train-step ms and peak memory per run; the phase's seconds.
+18. eval-throughput
+             ``python -m pbnet_torch.eval_throughput`` in a process of its
+             own: the last stdout line holds the JAX script's keys and the
+             card, every rate finite and > 0; every pass evaluates all 20
+             scenes, the warm pass in two buckets and the single-bucket
+             pass in one; its seconds.
 ``python3 chip_smoke.py --only <phase>`` (data-eval, parity, ddp,
-bottleneck, resnet) runs the build and that phase alone and prints no
-result lines.
+bottleneck, resnet, bench, eval-throughput) runs the build and that phase
+alone and prints no result lines.
 ``python3 chip_smoke.py --baseline DIR [...]``: DIR holds a checkout from
 before B4's rebuild (commit 8062b0f, e.g. unpacked by ``git archive``);
 phase 2 builds its csrc/window_kernels.cu and times its B4 design (one
@@ -212,7 +234,9 @@ data-eval phase's evaluate run (three scenes), whose own kernel check is
 under ``data_eval``; ``["parity"]`` over the parity harness's run (one
 scene); ``["ddp"]`` counts B1-B4 on rank 0 over the timed
 two-rank steps, ``["bottleneck"]`` every kernel over the bottleneck
-phase's four requests; B6's ``shapes`` adds the bottleneck path's rows
+phase's four requests, ``["bench-gather"]`` and ``["bench-banded"]``
+every kernel over the [bench] runs' 10 timed requests each; B6's
+``shapes`` adds the bottleneck path's rows
 (``"path": "bottleneck"``, ``"new"`` where the main path has no such
 shape).  B4's row adds ``shapes`` (its three shapes: kernel, plain and
 bound ms, ``baseline_ms`` or null, needy rows and chunks, pairs),
@@ -274,24 +298,6 @@ B6_RTOL = 1e-4
 # inputs of the next conv (2**-9 relative each); through three UNets that
 # moves the sigmoid scores by up to this much
 SCORE_ATOL = 5e-2
-# kernel-name fragments -> family for the trace phase, first match wins
-FAMILIES = (
-    ("clustering kernels", ("neighbor_pack", "masked_window", "window_1nn")),
-    # B6's kernels: the conv, its bf16 operand pass and its split sum
-    ("banded conv kernel", ("onehot_conv", "to_bf16_kernel", "split_sum_kernel")),
-    ("gemm", ("gemm", "cutlass", "xmma", "cublas", "sm90_")),
-    ("sort", ("radix", "sort", "Sort")),
-    ("searchsorted", ("searchsorted",)),
-    ("scatter/index_add", ("scatter", "index_add", "indexFunc", "bincount", "histogram")),
-    ("gather/index", ("index", "gather", "Index", "take")),
-    ("reduce", ("reduce", "Reduce")),
-    ("scan", ("scan", "Scan", "cumsum")),
-    ("copy/cat/fill", ("copy", "Copy", "cat", "Cat", "fill", "Fill", "memcpy", "Memcpy",
-                       "memset", "Memset")),
-    ("elementwise", ("elementwise", "Elementwise", "vectorized")),
-    # the optimizer's and the global norms' multi-tensor kernels (training)
-    ("multi-tensor (optimizer, norms)", ("multi_tensor_apply",)),
-)
 N_REQUESTS = 3
 TRACE_REQUESTS = 2
 TRAIN_STEPS = 5  # timed steps per training phase, after one warm-up
@@ -311,6 +317,11 @@ DDP_STEPS = 3
 # [bottleneck]: PBNet with the bottleneck backbone
 BOTTLENECK_ARCHS = dict(backbone_arch="MinkUNet50", dunet_arch="MinkUNet14A",
                         score_arch="MinkUNet34C")
+# [bench] and [eval-throughput]: the entry points run as subprocesses, each
+# within this many seconds
+ENTRY_TIMEOUT_S = 900
+# [eval-throughput]: the scenes of pbnet_torch.eval_throughput's val set
+EVAL_TP_SCENES = 20
 # [resnet]: the classifiers held card against CPU, on two rooms of
 # ``RESNET_POINTS`` points quantized at ``RESNET_VOXEL`` m: a 2.5 m room
 # spans 500 voxels, so the head's stride-192 level keeps 15-18 voxels per
@@ -357,13 +368,6 @@ TINY_EVAL = dict(
 
 def log(msg):
     print(msg, flush=True)
-
-
-def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def nbytes(*ts):
@@ -642,79 +646,6 @@ def b4_shape(tag, args, base_lib, card):
     return dict(max_abs_err=err, ms=ms, baseline_ms=baseline_ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, needy_rows=n_rows, needy_chunks=n_chunks, chunks=need.shape[0],
                 pairs=pairs)
-
-
-def family(name):
-    return next((f for f, keys in FAMILIES if any(k in name for k in keys)), "other")
-
-
-def in_backward(event):
-    """Whether a CPU op ran inside the autograd engine's backward."""
-    while event is not None:
-        if event.name.startswith("autograd::engine::evaluate_function"):
-            return True
-        event = event.cpu_parent
-    return False
-
-
-def trace_requests(request, n, tag="trace", split_backward=False):
-    """Profile ``n`` requests: wall and device-busy ms per request, the
-    device's idle share, and device time per request by kernel family.
-    With ``split_backward`` the gathers and GEMMs that the backward launched
-    (kernels of CPU ops under the autograd engine) are families of their
-    own."""
-    from collections import defaultdict
-
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            request()
-            torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    # device activity: Kineto lists it as CUDA-type events, or (older
-    # profilers) as the ``kernels`` of the CPU ops that launched it.  A
-    # range annotated on the device's track (``Optimizer.step``) spans
-    # kernels counted on their own: it is left out.
-    events = prof.events()
-    dev_events = [(e.name, e.time_range.elapsed_us()) for e in events
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and not getattr(e, "is_user_annotation", False)]
-    linked = [(k.name, k.duration, e) for e in events
-              if e.device_type == torch.autograd.DeviceType.CPU for k in e.kernels]
-    if not dev_events:
-        dev_events = [(name, us) for name, us, _ in linked]
-    if not dev_events:
-        raise RuntimeError("the profiler recorded no device activity")
-    by_family = defaultdict(float)
-    for name, us in dev_events:
-        by_family[family(name)] += us
-    busy_us = sum(by_family.values())
-    busy_ms = busy_us / 1e3 / n
-    if split_backward:
-        # the backward's kernels, found through the CPU op that launched
-        # each (the package's own CUDA kernels go through ctypes and have
-        # none: they stay in their families)
-        bwd_us = 0.0
-        for name, us, ev in linked:
-            if in_backward(ev):
-                bwd_us += us
-                fam = family(name)
-                if fam in ("gather/index", "gemm"):
-                    by_family[fam] -= us
-                    by_family["backward " + {"gather/index": "gathers",
-                                             "gemm": "GEMMs"}[fam]] += us
-        log(f"[{tag}] backward: {bwd_us / 1e3 / n:.3f} ms/step ({bwd_us / busy_us:.1%} of "
-            f"device time; {sum(us for _, us, _ in linked) / busy_us:.1%} of device time "
-            f"linked to a CPU op)")
-    log(f"[{tag}] wall {wall_ms:.3f} ms/request, device busy {busy_ms:.3f} ms/request, "
-        f"idle share {1 - busy_ms / wall_ms:.3f} ({n} requests, profiler on)")
-    for fam, us in sorted(by_family.items(), key=lambda kv: -kv[1]):
-        log(f"[{tag}]   {fam:20s} {us / 1e3 / n:9.3f} ms/request "
-            f"({us / busy_us:6.1%} of device time)")
-    log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15))
 
 
 def b6_key(sh, plan, weights):
@@ -1177,6 +1108,7 @@ def main():
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from pbnet_torch import _build, synthetic
+    from pbnet_torch.bench import card_line, launches, reset_launches, trace_requests
     from pbnet_torch.config import Config
     from pbnet_torch.eval_pipeline import eval_scene_instances
     from pbnet_torch.models.pbnet import COUNT_MEAN, PBNet, batch_to_device
@@ -1240,19 +1172,14 @@ def main():
         log(f"[sass] window_1nn_kernel: hot block {size} instructions ({npair} pair tests, "
             f"{size / max(npair, 1):.2f} per pair); {dict(ops.most_common(12))}")
 
-    def launches():
-        return {**wk.LAUNCHES, **oc.LAUNCHES}
-
-    def reset_launches():
-        wk.reset_launches()
-        oc.reset_launches()
-
     only = {"data-eval": lambda: data_eval_phase(card, reset_launches, launches),
             "parity": lambda: parity_phase(card, reset_launches, launches),
             "ddp": lambda: ddp_phase(card, reset_launches, launches),
             "ddp-cards": lambda: ddp_cards_phase(card),
             "bottleneck": lambda: bottleneck_phase(card, reset_launches, launches, ()),
-            "resnet": lambda: resnet_phase(card)}
+            "resnet": lambda: resnet_phase(card),
+            "bench": lambda: bench_phase(card),
+            "eval-throughput": lambda: eval_throughput_phase(card)}
     if len(argv) == 2 and argv[0] == "--only" and argv[1] in only:
         only[argv[1]]()
         log(f"[done] {time.time() - t_start:.1f} s ({argv[1]} only: no result lines)")
@@ -1658,7 +1585,7 @@ def main():
     # ---- 7. trace: where a request's time goes ----
     for path in PATHS:
         log(f"[trace] {path} path:")
-        trace_requests(lambda: request(path), TRACE_REQUESTS)
+        trace_requests(lambda: request(path), TRACE_REQUESTS, log=log)
     models.clear()
     del batch, last
     torch.cuda.empty_cache()
@@ -1680,9 +1607,14 @@ def main():
     bn_counts, bn_rows = bottleneck_phase(card, reset_launches, launches,
                                           [r["shape"] for r in shape_rows])
     resnet_phase(card)
+    torch.cuda.empty_cache()
+    bench_counts = bench_phase(card)
+    eval_throughput_phase(card)
     for k in ALL_KERNELS:
         rows[k]["launches_by_path"]["ddp"] = ddp_launches.get(k, 0)
         rows[k]["launches_by_path"]["bottleneck"] = bn_counts[k]
+        for config, c in bench_counts.items():
+            rows[k]["launches_by_path"]["bench-" + config] = c[k]
     rows["onehot_conv"]["shapes"] += bn_rows
     log(f"[done] {time.time() - t_start:.1f} s")
 
@@ -1750,6 +1682,7 @@ def train_phases(card, reset_launches, launches):
     import numpy as np
     import torch
     from pbnet_torch import engine, synthetic
+    from pbnet_torch.bench import trace_requests
     from pbnet_torch.config import Config
     from pbnet_torch.models.pbnet import PBNet, batch_to_device
     from pbnet_torch.nn import sparse_ops
@@ -1879,7 +1812,7 @@ def train_phases(card, reset_launches, launches):
     # ---- 11. (profiled here, while the models are built) train trace ----
     for ph in phases:
         log(f"[train-trace] {ph} phase:")
-        trace_requests(steps[ph], 1, tag="train-trace", split_backward=True)
+        trace_requests(steps[ph], 1, tag="train-trace", split_backward=True, log=log)
     del models, steps, first, batch
     torch.cuda.empty_cache()
 
@@ -2325,6 +2258,133 @@ def bottleneck_phase(card, reset_launches, launches, main_b6_keys):
     log(f"[bottleneck] tiny scene full forward, card == CPU ({int(oc_['num_proposals'])} "
         f"proposals); phase {time.time() - t_phase:.1f} s")
     return counts_total, shape_rows
+
+
+def run_entry(module, *args):
+    """``python -m module args`` from the checkout, as a user runs it:
+    (seconds, stdout, stderr).  Raises on a non-zero exit."""
+    t0 = time.time()
+    r = subprocess.run([sys.executable, "-m", module, *args],
+                       cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                       text=True, timeout=ENTRY_TIMEOUT_S)
+    if r.returncode:
+        raise RuntimeError(f"{module} {' '.join(args)} exited {r.returncode}:\n"
+                           f"{r.stdout[-2000:]}\n{r.stderr[-6000:]}")
+    return time.time() - t0, r.stdout, r.stderr
+
+
+def tagged(stderr, tag):
+    """The JSON objects of ``stderr``'s lines that start with ``tag``."""
+    return [json.loads(line[len(tag) + 1:]) for line in stderr.splitlines()
+            if line.startswith(tag + " ")]
+
+
+def bench_phase(card):
+    """Phase 17 [bench]: ``python -m pbnet_torch.bench`` with ``--config
+    gather`` and ``--config banded``, each in its own process.  Gates: the
+    headline (the last stdout line) finite and > 0; in each of the 10 timed
+    requests clusters > 0, zero overflow, B1-B4 launched, B4 once per
+    clustering call, B6 in the banded run only, B5 never; 0 < mfu <= 1 and
+    0 < mfu_f32 <= 1; the executed operations over the GEMM family's device
+    time within the f32 peak; the production extent's ids equal the
+    headline's; the useful count of stages 1 and 2 equal in both runs, and
+    of stage 3 too where both kept the same points.  Returns {config:
+    {kernel: launches over the timed requests}}."""
+    import math
+
+    t_phase = time.time()
+    runs, counts = {}, {}
+    for config in ("gather", "banded"):
+        secs, out, err = run_entry("pbnet_torch.bench", "--config", config)
+        head = json.loads(out.strip().splitlines()[-1])
+        reqs = tagged(err, "bench-request")
+        (sup,) = tagged(err, "bench-supplementary")
+        if not (head["metric"] == "inference_scenes_per_sec" and math.isfinite(head["value"])
+                and head["value"] > 0):
+            raise AssertionError(f"bench {config}: headline {head}")
+        if len(reqs) != 10:
+            raise AssertionError(f"bench {config}: {len(reqs)} request lines")
+        counts[config] = {k: 0 for k in ALL_KERNELS}
+        for r in reqs:
+            n = r["launches"]
+            if r["clusters"] <= 0 or r["overflow"]:
+                raise AssertionError(f"bench {config} request {r['request']}: {r}")
+            if not all(n[k] > 0 for k in KERNELS) or n["masked_window_match_pick"] or \
+                    (n["onehot_conv"] > 0) != (config == "banded"):
+                raise AssertionError(f"bench {config} request {r['request']}: launches {n}")
+            b4_once(n, f"bench {config} request {r['request']}")
+            for k in ALL_KERNELS:
+                counts[config][k] += n[k]
+        w, peaks = sup["work"], sup["peaks"]
+        if not (0 < w["mfu"] <= 1 and 0 < w["mfu_f32"] <= 1):
+            raise AssertionError(f"bench {config}: mfu {w['mfu']}, mfu_f32 {w['mfu_f32']}")
+        if not 0 < w["executed_flops_per_s"] <= peaks["f32_flops"]:
+            raise AssertionError(f"bench {config}: {w['executed_ops']} executed operations in "
+                                 f"{w['gemm_device_ms']} ms of GEMMs exceed the f32 peak: a "
+                                 f"counting fault")
+        if not sup["production_extent"]["ids_equal_headline"]:
+            raise AssertionError(f"bench {config}: production-extent ids differ")
+        runs[config] = sup
+        h, tr, t = sup["headline"], sup["trace"], sup["train_step"]
+        log(f"[bench] {config}: {head['value']:.4f} scenes/s (median {h['median_ms']:.3f} ms; "
+            f"stage 1 {statistics.median(h['stage1_ms']):.3f}, stages 2-3 "
+            f"{statistics.median(h['stages23_ms']):.3f} ms by CUDA events); device busy "
+            f"{tr['busy_ms']:.3f} ms, idle share {tr['idle_share']:.3f}; production extent "
+            f"{sup['production_extent']['median_ms']:.3f} ms (ids equal); useful "
+            f"{w['useful_ops']} operations (stage 1 share {w['stage1_useful_share']:.3f}), "
+            f"executed {w['executed_ops']} in {w['gemm_device_ms']:.3f} ms of GEMMs "
+            f"({w['executed_flops_per_s'] / 1e12:.3f} TFLOP/s); mfu {w['mfu']:.3e}, mfu_f32 "
+            f"{w['mfu_f32']:.3e}; train step {t['median_ms']:.3f} ms, peak {t['peak_gib']:.3f} "
+            f"GiB; launches per request {reqs[-1]['launches']}; kernel builds "
+            f"{sup['build_s'] or 'none'}; {secs:.1f} s; card {card}")
+        fams = sorted(tr["by_family_ms"].items(), key=lambda kv: -kv[1])
+        log(f"[bench] {config}: device ms per request by family "
+            f"{ {f: round(ms, 3) for f, ms in fams} }; requests ms "
+            f"{[round(x, 3) for x in h['ms']]}; production extent ms "
+            f"{[round(x, 3) for x in sup['production_extent']['ms']]}; train steps ms "
+            f"{[round(x, 3) for x in t['ms']]}; useful by stage {w['useful_ops_by_stage']}, "
+            f"executed by stage {w['executed_ops_by_stage']}")
+    g, b = runs["gather"]["work"], runs["banded"]["work"]
+    for stage in ("stage 1", "stage 2"):
+        if g["useful_ops_by_stage"][stage] != b["useful_ops_by_stage"][stage]:
+            raise AssertionError(f"bench: {stage}'s useful count differs between gather "
+                                 f"{g['useful_ops_by_stage']} and banded {b['useful_ops_by_stage']}")
+    same_kept = g["kept_digest"] == b["kept_digest"]
+    if same_kept and g["useful_ops"] != b["useful_ops"]:
+        raise AssertionError(f"bench: the useful count differs between gather "
+                             f"{g['useful_ops']} and banded {b['useful_ops']}")
+    log(f"[bench] useful count gather vs banded: {g['useful_ops_by_stage']} vs "
+        f"{b['useful_ops_by_stage']}; kept flags {'equal' if same_kept else 'differ'} "
+        f"(usage {g['usage']} vs {b['usage']})")
+    log(f"[bench] phase {time.time() - t_phase:.1f} s")
+    return counts
+
+
+def eval_throughput_phase(card):
+    """Phase 18 [eval-throughput]: ``python -m pbnet_torch.eval_throughput``
+    in its own process.  Gates: the last stdout line holds the JAX script's
+    keys and the card, every rate finite and > 0; every pass evaluates all
+    ``EVAL_TP_SCENES`` scenes, the warm pass in two buckets, the
+    single-bucket pass in one."""
+    import math
+
+    secs, out, err = run_entry("pbnet_torch.eval_throughput")
+    res = json.loads(out.strip().splitlines()[-1])
+    passes = tagged(err, "eval-pass")
+    rates = [res[k] for k in ("first_dispatch_scenes_per_sec", "warm_scenes_per_sec",
+                              "single_bucket_scenes_per_sec")]
+    if res["scenes"] != EVAL_TP_SCENES or not all(math.isfinite(v) and v > 0 for v in rates):
+        raise AssertionError(f"eval-throughput: {res}")
+    if [p["scenes"] for p in passes] != [EVAL_TP_SCENES] * 3 or \
+            [len(p["bucket_scene_counts"]) for p in passes[1:]] != [2, 1]:
+        raise AssertionError(f"eval-throughput: passes {passes}")
+    log(f"[eval-throughput] scenes/s first-dispatch {rates[0]}, warm {rates[1]}, single-bucket "
+        f"{rates[2]}; first forward per bucket {res['first_dispatch_compile_s']} s; buckets "
+        f"{res['bucket_scene_counts']} / {res['single_bucket_scene_counts']}; pass walls "
+        f"{[round(p['wall_s'], 2) for p in passes]} s; {secs:.1f} s; card {card}")
+    return res
+
+
 
 
 def resnet_case(arch, dev, pts, pbatch, coords, valid):

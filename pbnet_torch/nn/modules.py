@@ -18,6 +18,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from ..tools import work
 from . import sparse_ops
 
 
@@ -66,6 +67,8 @@ class SparseLinear(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout, device=device)) if use_bias else None
 
     def forward(self, feats, valid):
+        if work.ACTIVE:
+            work.dense(valid, *self.weight.shape[::-1])
         y = torch.matmul(feats, self.weight.t())
         if self.bias is not None:
             y = y + self.bias

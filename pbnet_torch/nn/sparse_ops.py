@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from ..tools import work
 from . import onehot_conv
 
 # Conv operand dtype: operands are rounded to this type and the product is
@@ -96,8 +97,14 @@ def gather_conv(feats: torch.Tensor, kmap: torch.Tensor, weights: torch.Tensor,
     plan counts in its ``overflow``.  The banded conv has no backward, so a
     plan raises where a gradient is wanted (the models attach plans in eval
     mode only).
+
+    Inside a ``tools.work.WorkCount`` the conv's present map entries are
+    counted, on either route.
     """
-    if plan is not None and feats.shape[1] >= onehot_conv.MIN_CIN:
+    banded = plan is not None and feats.shape[1] >= onehot_conv.MIN_CIN
+    if work.ACTIVE:
+        work.conv(kmap, valid_out, weights, "banded" if banded else "gather")
+    if banded:
         if torch.is_grad_enabled() and (feats.requires_grad or weights.requires_grad):
             raise RuntimeError("the banded conv has no backward: a banding plan "
                                "reached a conv while gradients are wanted")

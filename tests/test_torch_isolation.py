@@ -2,8 +2,9 @@
 
 * Importing pbnet_torch (every module: the eval, training, data-parallel,
   classifier, checkpoint-converter, checkpoint-parity, plotting and
-  checkpoint ones and the command line included), building and running a
-  model with banded convs, running one CPU train step, segmenting a mesh and
+  checkpoint ones, the command line and the measurement entry points with
+  their work count included), building and running a
+  model with banded convs (its work counted), running one CPU train step, segmenting a mesh and
   reading a JAX-package checkpoint leaves ``jax``, ``flax``, ``optax``,
   ``msgpack`` and ``pbnet_tpu`` out of ``sys.modules`` (checked in a fresh
   subprocess, since this test process imports JAX for the parity tests).
@@ -68,13 +69,16 @@ def test_import_and_run_leave_jax_out(tmp_path):
         "from pbnet_torch.ops import iou\n"
         "from pbnet_torch.parallel import distributed, mesh, train_step\n"
         "from pbnet_torch.nn import resnet\n"
-        "from pbnet_torch.tools import convert_checkpoint, parity_eval, plot\n"
+        "from pbnet_torch.tools import convert_checkpoint, parity_eval, plot, work\n"
+        "from pbnet_torch import bench, eval_throughput\n"
         "import dataclasses\n"
         "sh = dataclasses.replace(synthetic.GRAFT_SHAPES, onehot_tm=128, onehot_spans=(256, 128),\n"
         "                         onehot_spans_local=(256, 128))\n"
         "m = PBNet(sh, device='cpu', backbone_arch='Mini_Unet', dunet_arch='Mini_Unet',\n"
         "          score_arch='Mini_Unet')\n"
-        "out = m(batch_to_device(synthetic.synthetic_batch(sh, np.random.RandomState(0)), 'cpu'))\n"
+        "with work.WorkCount() as wc:\n"
+        "    out = m(batch_to_device(synthetic.synthetic_batch(sh, np.random.RandomState(0)), 'cpu'))\n"
+        "assert wc.useful() > 0\n"
         "gt, sp = synthetic.bench_eval_inputs()\n"
         "cfg = Config()\n"
         "opt = train_step.make_optimizer(m, cfg)\n"
