@@ -206,9 +206,45 @@ exits non-zero — no phase catches its own failure):
              card, every rate finite and > 0; every pass evaluates all 20
              scenes, the warm pass in two buckets and the single-bucket
              pass in one; its seconds.
+19. overfit  training that learns: ``pbnet_torch.tools.overfit.run`` on the
+             card (the full MinkUNet34C / 14A / 34C pipeline on two
+             fabricated scenes of a floor and three box chairs, 150
+             backbone steps, then rounds of 40 full steps each followed by
+             ``engine.evaluate``, Adam at 1e-3; memorised: it trains on the
+             evaluated batches).  Gates, tests/test_overfit.py's asserts
+             unchanged: AP25 >= 0.9, mAP > 0, the semantic loss < 1.0 after
+             the backbone steps and lower at the end, the mask and score
+             losses falling; and each of B1-B4 launched in every full step
+             and every evaluated scene, B4 once per clustering call, B5 and
+             B6 never, every overflow counter of the train steps and of
+             evaluate 0.  Every call of B1-B4 in the run is recorded; at
+             each call of the last full step and of the last evaluate (this
+             path's shapes: cluster band 1024, point cap 4096) each kernel
+             must equal its plain version exactly, timed beside its bound.
+             Prints ms per backbone and full step (medians), AP25 per round,
+             the last evaluate's propagation rounds (B2 launches per B1
+             launch) and B4 needy rows per call.
+20. overfit-heldout
+             the same with ``heldout=True`` (a fresh random z-rotation of
+             two copies at every step; evaluated on the TTA views) under
+             the held-out test's gates: AP25 >= 0.5, the semantic loss <
+             1.0 after the backbone steps; the launch, overflow and kernel
+             gates as in 19.
+21. trained-cluster
+             ``python -m pbnet_torch.tools.trained_cluster`` in a process
+             of its own: the bench scene at the script's caps, the backbone
+             trained 40 steps (early), then 240 more (late); clustering
+             timed at the oracle, early and late content.  Gates: each
+             time finite and > 0, band_overflow 0, B1-B4 launched in one
+             call (B4 once), clusters > 0 at the late content.  Then, here,
+             ``cluster_on`` at the saved early and late content: B1-B4 (B2
+             in every propagation round) exact against their plain
+             versions and timed beside their bounds (B4 with its needy
+             rows counted).
 ``python3 chip_smoke.py --only <phase>`` (data-eval, parity, ddp,
-bottleneck, resnet, bench, eval-throughput) runs the build and that phase
-alone and prints no result lines.
+bottleneck, resnet, bench, eval-throughput, overfit, overfit-heldout,
+trained-cluster) runs the build and that phase alone and prints no result
+lines.
 ``python3 chip_smoke.py --baseline DIR [...]``: DIR holds a checkout from
 before B4's rebuild (commit 8062b0f, e.g. unpacked by ``git archive``);
 phase 2 builds its csrc/window_kernels.cu and times its B4 design (one
@@ -235,16 +271,25 @@ under ``data_eval``; ``["parity"]`` over the parity harness's run (one
 scene); ``["ddp"]`` counts B1-B4 on rank 0 over the timed
 two-rank steps, ``["bottleneck"]`` every kernel over the bottleneck
 phase's four requests, ``["bench-gather"]`` and ``["bench-banded"]``
-every kernel over the [bench] runs' 10 timed requests each; B6's
+every kernel over the [bench] runs' 10 timed requests each,
+``["overfit"]`` every kernel over the memorised overfit run's last round
+of full steps and its last evaluate; B6's
 ``shapes`` adds the bottleneck path's rows
 (``"path": "bottleneck"``, ``"new"`` where the main path has no such
-shape).  B4's row adds ``shapes`` (its three shapes: kernel, plain and
+shape).  B1-B3 add ``overfit`` and ``overfit_heldout`` (phases 19-20,
+over the last full step and the last evaluate) and ``trained_early`` and
+``trained_late`` (phase 21): calls, median kernel ms, plain and bound ms
+at those calls, B2 one call per round.  B4's row adds ``shapes`` (its
+three shapes, ``"overfit"``, ``"overfit-heldout"``, ``"trained-early"``
+and ``"trained-late"``, the latter four at their call with the most needy
+rows: kernel, plain and
 bound ms, ``baseline_ms`` or null, needy rows and chunks, pairs),
 ``empty_launch_ms`` and ``sass``.  The last line is ``{"ok": true,
 "device": {...}}``.  Without a CUDA device, or outside a checkout of the
 repository, the script fails and prints no result.
 """
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -482,6 +527,78 @@ def bound(name, args, outs):
     detail = f"{n_bytes / 1e6:.3f} MB, {f32} f32 + {i32} int32 ops"
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
             detail)
+
+
+def hold_kernel(name, args, kw):
+    """One clustering kernel (B1-B3) at ``args``: exact against its plain
+    version (raises otherwise) and both timed beside the bound.  Returns
+    {max_abs_err, ms, plain_ms, bound_ms, bound_by, detail}."""
+    from pbnet_torch.ops import window_kernels as wk
+
+    kern, plain = getattr(wk, name), getattr(wk, name + "_plain")
+    got, want = kern(*args, **kw), plain(*args, **kw)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = max_abs_err(got, want)
+    bms, by, detail = bound(name, args, got)
+    return dict(max_abs_err=err, ms=time_kernel(lambda: kern(*args, **kw)),
+                plain_ms=time_plain(lambda: plain(*args, **kw)), bound_ms=bms, bound_by=by,
+                detail=detail)
+
+
+@contextlib.contextmanager
+def recorded_calls():
+    """While open, every call of B1-B4 through ``window_kernels`` is
+    recorded: yields {kernel: [(args, kwargs), ...]} in call order."""
+    from pbnet_torch.ops import window_kernels as wk
+
+    calls = {k: [] for k in KERNELS}
+    originals = {k: getattr(wk, k) for k in KERNELS}
+
+    def recorder(name):
+        def wrapped(*a, **kw):
+            calls[name].append((a, kw))
+            return originals[name](*a, **kw)
+        return wrapped
+
+    for k in KERNELS:
+        setattr(wk, k, recorder(k))
+    try:
+        yield calls
+    finally:
+        for k in KERNELS:
+            setattr(wk, k, originals[k])
+
+
+def hold_calls(phase, tag, where, calls, card):
+    """B1-B4 at every recorded call (``recorded_calls``) of phase ``phase``
+    (``where`` names the calls): each exact against its plain version.
+    B1-B3 timed at each call beside the bound; B4 held at every call and
+    timed (``b4_shape`` as shape ``tag``) at its call with the most needy
+    rows.  Returns {kernel: record}."""
+    from pbnet_torch.ops import window_kernels as wk
+
+    rows = {}
+    for name in KERNELS[:3]:
+        per_call = [hold_kernel(name, a, kw) for a, kw in calls[name]]
+        ms = [c["ms"] for c in per_call]
+        rows[name] = dict(
+            calls=len(per_call), ms_median=statistics.median(ms), ms_calls=sum(ms),
+            plain_ms=statistics.median(c["plain_ms"] for c in per_call),
+            bound_ms=statistics.median(c["bound_ms"] for c in per_call),
+            bound_by=per_call[0]["bound_by"],
+            max_abs_err=max(c["max_abs_err"] for c in per_call))
+        log(f"[{phase}] {name} at {where}: {len(per_call)} call(s), each exact; kernel ms "
+            f"{[round(m, 4) for m in ms]}, plain ms {[round(c['plain_ms'], 3) for c in per_call]}, "
+            f"bound ms {[round(c['bound_ms'], 4) for c in per_call]} ({per_call[0]['bound_by']}; "
+            f"{per_call[0]['detail']})")
+    b4 = [a for a, _ in calls["window_1nn"]]
+    top = max(range(len(b4)), key=lambda i: int(b4[i][2].sum()))
+    for i, a in enumerate(b4):
+        if i != top:
+            max_abs_err(wk.window_1nn(*a), wk.window_1nn_plain(*a))
+    rows["window_1nn"] = dict(b4_shape(tag, b4[top], None, card), calls=len(b4))
+    return rows
 
 
 def sass_hot_blocks(lib_path, kernels, score=None):
@@ -862,7 +979,6 @@ def data_eval_phase(card, reset_launches, launches, device="cuda"):
     import torch
 
     from pbnet_torch import engine
-    from pbnet_torch.ops import window_kernels as wk
 
     t_phase = time.time()
     with tempfile.TemporaryDirectory() as root:
@@ -877,28 +993,16 @@ def data_eval_phase(card, reset_launches, launches, device="cuda"):
             f"{[(b.point_cap, b.voxel_caps[0]) for b in cfg.eval_buckets()]}")
 
         # the evaluate run, counted: B1-B4's arguments at the eval shapes are
-        # recorded (the last call of each) for the comparison after it
-        captured = {}
-        originals = {k: getattr(wk, k) for k in KERNELS}
-
-        def recorder(name):
-            def wrapped(*a, **kw):
-                captured[name] = (a, kw)
-                return originals[name](*a, **kw)
-            return wrapped
-
+        # recorded (the last call of each is held after it)
         timing = {}
-        for k in KERNELS:
-            setattr(wk, k, recorder(k))
-        try:
+        with recorded_calls() as calls:
             reset_launches()
             t0 = time.time()
             res = engine.evaluate_pretrained(cfg, timing=timing, device=device)
             eval_s = time.time() - t0
             counts = launches()
-        finally:
-            for k in KERNELS:
-                setattr(wk, k, originals[k])
+        captured = {k: calls[k][-1] for k in KERNELS}
+        del calls
 
         per_scene = timing["per_scene"]
         for r in per_scene:
@@ -947,21 +1051,15 @@ def data_eval_phase(card, reset_launches, launches, device="cuda"):
         kernel_rows = {}
         for name in KERNELS:
             args, kw = captured[name]
-            kern, plain = getattr(wk, name), getattr(wk, name + "_plain")
-            got, want = kern(*args, **kw), plain(*args, **kw)
-            got = got if isinstance(got, tuple) else (got,)
-            want = want if isinstance(want, tuple) else (want,)
-            err = max_abs_err(got, want)
-            ms = time_kernel(lambda: kern(*args, **kw))
-            plain_ms = time_plain(lambda: plain(*args, **kw))
-            bms, by, detail = bound(name, args, got)
+            r = hold_kernel(name, args, kw)
+            detail = r.pop("detail")
             shp = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
-            kernel_rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                                     bound_by=by, launches=counts[name],
+            kernel_rows[name] = dict(r, launches=counts[name],
                                      launches_per_scene=counts[name] / len(per_scene))
-            log(f"[data-eval] {name} at the last scene's shapes {shp}: exact; kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}; {detail}); "
-                f"{counts[name]} launches over {len(per_scene)} scenes")
+            log(f"[data-eval] {name} at the last scene's shapes {shp}: exact; kernel "
+                f"{r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}; {detail}); {counts[name]} launches over {len(per_scene)} "
+                f"scenes")
 
         # the submission of the test split, written under the working directory
         cwd = os.getcwd()
@@ -1179,7 +1277,10 @@ def main():
             "bottleneck": lambda: bottleneck_phase(card, reset_launches, launches, ()),
             "resnet": lambda: resnet_phase(card),
             "bench": lambda: bench_phase(card),
-            "eval-throughput": lambda: eval_throughput_phase(card)}
+            "eval-throughput": lambda: eval_throughput_phase(card),
+            "overfit": lambda: overfit_phase(card, reset_launches),
+            "overfit-heldout": lambda: overfit_phase(card, reset_launches, heldout=True),
+            "trained-cluster": lambda: trained_cluster_phase(card)}
     if len(argv) == 2 and argv[0] == "--only" and argv[1] in only:
         only[argv[1]]()
         log(f"[done] {time.time() - t_start:.1f} s ({argv[1]} only: no result lines)")
@@ -1205,18 +1306,8 @@ def main():
         return bb, stages23(path, bb)
 
     # ---- 2. capture real kernel arguments from one warm-up request each ----
-    captured = {}
     b6_calls = {}  # shape key -> (args, launches in one banded request)
-    originals = {k: getattr(wk, k) for k in KERNELS}
     oc_original = oc.onehot_conv
-
-    def recorder(name):
-        fn = originals[name]
-
-        def wrapped(*a, **kw):
-            captured.setdefault(name, (a, kw))
-            return fn(*a, **kw)
-        return wrapped
 
     def b6_recorder(*a):
         key = b6_key(shapes["banded"], a[1], a[2])
@@ -1224,45 +1315,36 @@ def main():
         b6_calls[key] = (args, n + 1)
         return oc_original(*a)
 
-    for k in KERNELS:
-        setattr(wk, k, recorder(k))
     oc.onehot_conv = b6_recorder
     try:
-        t0 = time.time()
-        request("gather")
-        torch.cuda.synchronize()
-        t1 = time.time()
-        request("banded")
-        torch.cuda.synchronize()
+        with recorded_calls() as calls:
+            t0 = time.time()
+            request("gather")
+            torch.cuda.synchronize()
+            t1 = time.time()
+            request("banded")
+            torch.cuda.synchronize()
     finally:
-        for k in KERNELS:
-            setattr(wk, k, originals[k])
         oc.onehot_conv = oc_original
+    captured = {k: c[0] for k, c in calls.items() if c}
+    del calls
     log(f"[kernels] warm-up requests: gather {t1 - t0:.2f} s, banded {time.time() - t1:.2f} s; "
         f"captured {sorted(captured)} and {len(b6_calls)} banded-conv shapes")
 
     rows = {}
     for name in KERNELS[:3]:  # B4 below, at three shapes
         args, kw = captured[name]
-        kern, plain = getattr(wk, name), getattr(wk, name + "_plain")
-        got = kern(*args, **kw)
-        want = plain(*args, **kw)
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        err = max_abs_err(got, want)
-        ms = time_kernel(lambda: kern(*args, **kw))
-        plain_ms = time_plain(lambda: plain(*args, **kw))
-        bms, by, detail = bound(name, args, got)
+        r = hold_kernel(name, args, kw)
+        detail = r.pop("detail")
         shp = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
-        log(f"[kernels] {name}: exact at {shp}; kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.3f} ms, bound {bms:.4f} ms ({by}; {detail})")
+        log(f"[kernels] {name}: exact at {shp}; kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}; {detail})")
         if name == "neighbor_pack":
             counted, grid, tested = b1_pairs(args)
             log(f"[kernels] {name}: pairs the bound counts {counted}, pairs of the full grid "
                 f"{grid}, pairs the kernel tests {tested} ({tested / counted:.4f} x counted)")
         rows[name] = dict(name=name, route="cuda", source=SOURCE[name],
-                          replaces=TPU_KERNEL[name], max_abs_err=err, ms=ms,
-                          plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None)
+                          replaces=TPU_KERNEL[name], **r, library_ms=None)
     # B2 on content that needs several propagation rounds: binary_cluster on
     # the bench scene's foreground points (compacted to the fg cap, as the
     # model does) with 4 cm of noise on the oracle offsets (as phase 3);
@@ -1274,28 +1356,15 @@ def main():
     noise = np.random.RandomState(2).randn(nf, 3).astype(np.float32) * 0.04
     nargs = ((xyz_b + offs_b)[sel] + noise, xyz_b[sel], sem_b[sel], np.zeros(nf, np.int32),
              sem_b[sel] >= 2)
-    reduce_calls, noisy_b4 = [], []
-
-    def reduce_recorder(*a, **kw):
-        reduce_calls.append((a, kw))
-        return originals["masked_window_reduce"](*a, **kw)
-
-    def b4_recorder(*a):
-        noisy_b4.append(a)
-        return originals["window_1nn"](*a)
-
-    wk.masked_window_reduce = reduce_recorder
-    wk.window_1nn = b4_recorder
-    try:
+    with recorded_calls() as calls:
         m, sh = models["gather"], shapes["gather"]
         noisy = cl.binary_cluster(*(torch.from_numpy(a).cuda() for a in nargs),
                                   count_mean=m.count_mean, radius=m.radius, min_pts=m.min_pts,
                                   cluster_cap=sh.cluster_cap, band=sh.cluster_band,
                                   nn_exact_cap=sh.nn_exact_cap)
         torch.cuda.synchronize()
-    finally:
-        wk.masked_window_reduce = originals["masked_window_reduce"]
-        wk.window_1nn = originals["window_1nn"]
+    reduce_calls, ((noisy_args, _),) = calls["masked_window_reduce"], calls["window_1nn"]
+    del calls
     round_ms = []
     for a, kw in reduce_calls:
         max_abs_err((wk.masked_window_reduce(*a, **kw),),
@@ -1323,7 +1392,7 @@ def main():
     # bound of the work the shape needs
     name = "window_1nn"
     empty_ms = time_kernel(lambda: torch.cuda._sleep(0))
-    (main_args, _), (noisy_args,) = captured[name], noisy_b4
+    main_args, _ = captured[name]
     all_needy = main_args[:2] + (torch.ones_like(main_args[2]),) + main_args[3:]
     b4_rows = {tag: b4_shape(tag, args, base_lib, card) for tag, args in (
         ("main", main_args), ("noisy", noisy_args), ("all_needy", all_needy))}
@@ -1334,7 +1403,7 @@ def main():
                       max_abs_err=max(r["max_abs_err"] for r in b4_rows.values()), ms=m["ms"],
                       plain_ms=m["plain_ms"], bound_ms=m["bound_ms"], bound_by=m["bound_by"],
                       library_ms=None, empty_launch_ms=empty_ms, shapes=b4_rows, sass=b4_sass)
-    del noisy_b4, main_args, noisy_args, all_needy
+    del main_args, noisy_args, all_needy
 
     # B5 on the border kernel's arguments, with its ``best`` as the target:
     # there match_pick must give the border kernel's ``root``
@@ -1610,12 +1679,22 @@ def main():
     torch.cuda.empty_cache()
     bench_counts = bench_phase(card)
     eval_throughput_phase(card)
+    overfit_counts, overfit_rows = overfit_phase(card, reset_launches)
+    _, heldout_rows = overfit_phase(card, reset_launches, heldout=True)
+    _, trained_rows = trained_cluster_phase(card)
     for k in ALL_KERNELS:
         rows[k]["launches_by_path"]["ddp"] = ddp_launches.get(k, 0)
         rows[k]["launches_by_path"]["bottleneck"] = bn_counts[k]
         for config, c in bench_counts.items():
             rows[k]["launches_by_path"]["bench-" + config] = c[k]
+        rows[k]["launches_by_path"]["overfit"] = overfit_counts[k]
     rows["onehot_conv"]["shapes"] += bn_rows
+    held = {"overfit": overfit_rows, "overfit-heldout": heldout_rows,
+            **{"trained-" + c: r for c, r in trained_rows.items()}}
+    for tag, by_kernel in held.items():
+        rows["window_1nn"]["shapes"][tag] = by_kernel.pop("window_1nn")
+        for k, r in by_kernel.items():
+            rows[k][tag.replace("-", "_")] = r
     log(f"[done] {time.time() - t_start:.1f} s")
 
     print(card, flush=True)
@@ -2385,6 +2464,142 @@ def eval_throughput_phase(card):
     return res
 
 
+def overfit_phase(card, reset_launches, heldout=False):
+    """Phases 19 [overfit] and 20 [overfit-heldout]: ``overfit.run`` on the
+    card (memorised, or with ``heldout``) under tests/test_overfit.py's
+    gates; every full step and every evaluated scene launched each of B1-B4
+    (B4 once per clustering call) and neither B5 nor B6, with every
+    overflow counter 0; B1-B4 exact against their plain versions at every
+    call of the last full step and the last evaluate.  Returns ({kernel:
+    launches over the last round of full steps and the last evaluate},
+    {kernel: record of ``hold_calls``})."""
+    import torch
+
+    from pbnet_torch.tools import overfit
+
+    tag = "overfit-heldout" if heldout else "overfit"
+    t_phase = time.time()
+    rec = {}
+    with tempfile.TemporaryDirectory() as root, recorded_calls() as calls:
+        reset_launches()
+        r = overfit.run(root, heldout=heldout, record=rec)
+    if heldout:
+        ok = r["sem_loss_after_bb"] < 1.0 and r.get("AP25", 0.0) >= 0.5
+    else:
+        ok = (r["sem_loss_after_bb"] < 1.0 and r["sem_loss_final"] < r["sem_loss_after_bb"]
+              and r["mask_loss_last"] < r["mask_loss_first"]
+              and r["score_loss_last"] < r["score_loss_first"]
+              and r.get("AP25", 0.0) >= 0.9 and r.get("mAP", 0.0) > 0.0)
+    if not ok:
+        raise AssertionError(f"{tag}: the bar is missed: {r}")
+    on_path = set(KERNELS)
+    for i, (n, over) in enumerate(zip(rec["full_step_launches"], rec["full_step_overflow"])):
+        if any((n[k] > 0) != (k in on_path) for k in ALL_KERNELS) or any(over.values()):
+            raise AssertionError(f"{tag} full step {i}: launches {n}, overflow {over}")
+        b4_once(n, f"{tag} full step {i}")
+    for j, ev in enumerate(rec["evaluations"]):
+        if ev["launches_after"]["onehot_conv"] != ev["launches_before"]["onehot_conv"]:
+            raise AssertionError(f"{tag} evaluate {j}: the banded conv ran")
+        for s in ev["timing"]["per_scene"]:
+            n, over = s["launches"], s["overflow"]
+            if any((n[k] > 0) != (k in on_path) for k in n) or any(over.values()):
+                raise AssertionError(f"{tag} evaluate {j} {s['fn']}: launches {n}, "
+                                     f"overflow {over}")
+            b4_once(n, f"{tag} evaluate {j} {s['fn']}")
+    # the run ends with the last evaluate: each recorded call launched its
+    # kernel once, so a call's index is the launch counter before it
+    last = rec["evaluations"][-1]
+    b0, b1, step = last["launches_before"], last["launches_after"], rec["full_step_launches"][-1]
+    if any(len(calls[k]) != b1[k] for k in KERNELS):
+        raise AssertionError(f"{tag}: calls {({k: len(c) for k, c in calls.items()})}, "
+                             f"launches {b1}")
+    held = {k: calls[k][b0[k] - step[k]:b1[k]] for k in KERNELS}
+    needy = [int(a[2].sum()) for a, _ in calls["window_1nn"][b0["window_1nn"]:]]
+    del calls
+    per_round = len(rec["full_step_launches"]) // len(rec["evaluations"])
+    counts = {k: sum(n[k] for n in rec["full_step_launches"][-per_round:]) + b1[k] - b0[k]
+              for k in ALL_KERNELS}
+    scenes = last["timing"]["per_scene"]
+    rounds = [s["launches"]["masked_window_reduce"] // s["launches"]["neighbor_pack"]
+              for s in scenes]
+    log(f"[{tag}] AP25 by round {r['ap25_by_round']} ({len(r['ap25_by_round'])} rounds, "
+        f"{r['steps_full']} full steps after {len(rec['bb_step_ms'])} backbone steps); mAP "
+        f"{r.get('mAP')}, AP50 {r.get('AP50')}, AP25 {r.get('AP25')}; losses: sem after "
+        f"backbone {r['sem_loss_after_bb']:.4f}, final {r['sem_loss_final']:.4f}, mask "
+        f"{r['mask_loss_first']:.4f} -> {r['mask_loss_last']:.4f}, score "
+        f"{r['score_loss_first']:.4f} -> {r['score_loss_last']:.4f}")
+    log(f"[{tag}] ms per step, median: backbone {statistics.median(rec['bb_step_ms']):.3f}, "
+        f"full {statistics.median(rec['full_step_ms']):.3f}; seconds "
+        f"{ {k: round(v, 2) for k, v in r['seconds'].items()} }; last evaluate: prop_rounds "
+        f"per scene {rounds}, B4 needy rows per call {needy}, launches per scene "
+        f"{[{k: s['launches'][k] for k in KERNELS} for s in scenes]}; launches over the last "
+        f"round and evaluate { {k: counts[k] for k in KERNELS} }; B1-B4 in every full step "
+        f"and evaluated scene, zero overflow; card {card}")
+    rows = hold_calls(tag, tag, "the last full step and evaluate", held, card)
+    del held
+    log(f"[{tag}] phase {time.time() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
+    return counts, rows
+
+
+def trained_cluster_phase(card):
+    """Phase 21 [trained-cluster]: ``python -m
+    pbnet_torch.tools.trained_cluster`` in a process of its own (the bench
+    scene, 40 then 240 backbone steps).  Gates: a finite, non-zero
+    clustering time at each content, ``band_overflow`` 0, clusters > 0 at
+    the late content, B1-B4 launched in one call (B4 once).  Then, in this
+    process, ``cluster_on`` at the early and the late content the tool
+    saved: each of B1-B4 (B2 in every propagation round) equal to its plain
+    version exactly, timed beside its bound.  Returns (readings, {content:
+    {kernel: record of ``hold_calls``}})."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from pbnet_torch.tools import trained_cluster as tc
+
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory() as out:
+        secs, stdout, _ = run_entry("pbnet_torch.tools.trained_cluster", "--out", out)
+        res = json.loads(stdout.strip().splitlines()[-1])
+        saved = {c: dict(np.load(os.path.join(out, c + ".npz"))) for c in ("early", "late")}
+    for label, c in res["contents"].items():
+        n = c["launches"]
+        if not (math.isfinite(c["ms"]) and c["ms"] > 0 and c["band_overflow"] == 0
+                and all(n[k] > 0 for k in KERNELS)):
+            raise AssertionError(f"trained-cluster {label}: {c}")
+        b4_once(n, f"trained-cluster {label}")
+    if res["contents"]["late"]["num_clusters"] <= 0:
+        raise AssertionError(f"trained-cluster: no cluster at the late content {res}")
+    for label, c in res["contents"].items():
+        log(f"[trained-cluster] {label}: {c['ms']:.4f} ms, clusters {c['num_clusters']}, "
+            f"prop_rounds {c['prop_rounds']}, band_overflow {c['band_overflow']}, nn_overflow "
+            f"{c['nn_overflow']}, sem_acc {c['sem_acc']:.4f}, offset_mae {c['offset_mae']:.5f}, "
+            f"fg rows {c['fg_rows']}, B4 needy rows {c['needy_rows']}, launches "
+            f"{c['launches']}; card {card}")
+    for label, t in res["train"].items():
+        log(f"[trained-cluster] train {label}: {t['steps']} steps ({t['total_steps']} in all), "
+            f"{t['ms_per_step']:.3f} ms/step, loss {t['loss_first']:.4f} -> "
+            f"{t['loss_last']:.4f}")
+
+    # every call of each kernel at a trained content's arguments
+    batch_np, _, _, _, n_pts = tc.bench_content()
+    xyz = torch.from_numpy(batch_np["xyz"]).cuda()
+    rows = {}
+    for content, pred in saved.items():
+        sem, offs = (torch.from_numpy(pred[k]).cuda() for k in ("sem", "offs"))
+        with recorded_calls() as calls:
+            resc = tc.cluster_on(sem, offs, xyz, n_pts)
+            torch.cuda.synchronize()
+        if int(resc.num_clusters) != res["contents"][content]["num_clusters"]:
+            raise AssertionError(f"trained-cluster {content}: {int(resc.num_clusters)} "
+                                 f"clusters here, {res['contents'][content]['num_clusters']} "
+                                 f"in the tool")
+        rows[content] = hold_calls("trained-cluster", f"trained-{content}",
+                                   f"the {content} content", calls, card)
+    log(f"[trained-cluster] phase {time.time() - t_phase:.1f} s (the tool {secs:.1f} s)")
+    return res, rows
 
 
 def resnet_case(arch, dev, pts, pbatch, coords, valid):

@@ -2,8 +2,9 @@
 
 * Importing pbnet_torch (every module: the eval, training, data-parallel,
   classifier, checkpoint-converter, checkpoint-parity, plotting and
-  checkpoint ones, the command line and the measurement entry points with
-  their work count included), building and running a
+  checkpoint ones, the command line, the measurement entry points with
+  their work count, and the overfit and trained-clustering tools
+  included), building and running a
   model with banded convs (its work counted), running one CPU train step, segmenting a mesh and
   reading a JAX-package checkpoint leaves ``jax``, ``flax``, ``optax``,
   ``msgpack`` and ``pbnet_tpu`` out of ``sys.modules`` (checked in a fresh
@@ -71,6 +72,7 @@ def test_import_and_run_leave_jax_out(tmp_path):
         "from pbnet_torch.nn import resnet\n"
         "from pbnet_torch.tools import convert_checkpoint, parity_eval, plot, work\n"
         "from pbnet_torch import bench, eval_throughput\n"
+        "from pbnet_torch.tools import overfit, trained_cluster\n"
         "import dataclasses\n"
         "sh = dataclasses.replace(synthetic.GRAFT_SHAPES, onehot_tm=128, onehot_spans=(256, 128),\n"
         "                         onehot_spans_local=(256, 128))\n"
