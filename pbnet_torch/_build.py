@@ -26,6 +26,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from . import telemetry
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
@@ -110,10 +112,11 @@ def ptr(t) -> ctypes.c_void_p:
 def launch(launches: dict, name: str, fn, *args) -> None:
     """Call the C launcher ``fn(*args, stream)`` on PyTorch's current stream.
     Raise if it returns a CUDA error (a refused launch never runs), else
-    count the launch in ``launches[name]``."""
+    count the launch in ``launches[name]`` and, while tracing, in the
+    ``telemetry`` counter ``name``."""
     import torch
 
     err = fn(*args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-    launches[name] += 1
+    telemetry.count(name, 1, tally=launches)

@@ -7,7 +7,8 @@
   ``logpath/scalars.jsonl`` (and TensorBoard where it imports); a checkpoint
   every epoch, auto-resume from the newest one (the port's or the JAX
   package's); validation every 4th epoch and at the last; a
-  ``torch.profiler`` trace of iterations ``[2, 2 + cfg.profile_steps)``.
+  ``torch.profiler`` trace of iterations ``[2, 2 + cfg.profile_steps)``,
+  with the port's ``pbnet.*`` spans in it (``telemetry``).
   With ``cfg.num_devices > 1`` (0: every visible GPU) or ``cfg.nodes > 1``
   it is data-parallel: one process per local rank (``parallel/``), SyncBN
   with ``cfg.sync_bn``, gradients, aux and BN statistics averaged every
@@ -33,7 +34,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from . import resolve_device
+from . import resolve_device, telemetry
 from .config import Config
 from .data.dataset import Dataset
 from .eval_pipeline import eval_scene_instances
@@ -567,7 +568,7 @@ def _train_loop(cfg, dataset, max_epochs, max_iters, dev, local_rank, local_worl
                                                      if dev.type == "cuda" else []))
                     prof.start()
                 aux = step_fn(device_batch(batch, dev), lr)
-                aux = {k: float(v) for k, v in aux.items()}
+                aux = {k: float(telemetry.host_read(v)) for k, v in aux.items()}
                 dt = time.time() - t0
                 iter_time.update(dt)
                 it += 1

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from . import telemetry
 from .ops.nms import greedy_nms_np
 from .tools.eval_protocol import SEMANTIC_LABEL_IDX
 from .tools.metrics import align_superpoint_label
@@ -24,10 +25,11 @@ from .tools.metrics import align_superpoint_label
 def _host(x) -> np.ndarray:
     """A model output (tensor on any device, or array) as a numpy array."""
     if hasattr(x, "detach"):
-        x = x.detach().cpu().numpy()
+        x = telemetry.host_read(x).detach().cpu().numpy()
     return np.asarray(x)
 
 
+@telemetry.span("pbnet.fold.masks")
 def proposals_to_masks(ret: dict, num_points: int) -> dict:
     """Device outputs -> host proposal masks over the N/3 base scene.
 
@@ -40,7 +42,7 @@ def proposals_to_masks(ret: dict, num_points: int) -> dict:
     kept = _host(ret["prop_point_kept"])
     src = _host(ret["prop_point_src"])[kept]
     pid = _host(ret["prop_point_pid"])[kept]
-    num_final = int(ret["num_final_proposals"])
+    num_final = int(_host(ret["num_final_proposals"]))
     scores = _host(ret["clt_scores"])[:num_final]
     sems = _host(ret["prop_sem"])[:num_final]
 
@@ -50,6 +52,7 @@ def proposals_to_masks(ret: dict, num_points: int) -> dict:
     return {"masks": masks, "scores": scores, "sems": sems}
 
 
+@telemetry.span("pbnet.fold")
 def eval_scene_instances(ret: dict, num_points: int, superpoint: np.ndarray,
                          cfg) -> dict | None:
     """Full per-scene instance post-processing -> pred_info (or None if no
@@ -69,36 +72,38 @@ def eval_scene_instances(ret: dict, num_points: int, superpoint: np.ndarray,
     if masks.shape[0] == 0:
         return None
 
-    # greedy NMS on the mask IoU matrix (:87-98)
-    m = masks.astype(np.float32)
-    inter = m @ m.T
-    sizes = m.sum(1)
-    ious = inter / np.maximum(sizes[:, None] + sizes[None, :] - inter, 1e-12)
-    pick = greedy_nms_np(ious, scores, cfg.TEST_NMS_THRESH)
-    masks, scores, sems = masks[pick], scores[pick], sems[pick]
+    with telemetry.span("pbnet.fold.nms"):
+        # greedy NMS on the mask IoU matrix (:87-98)
+        m = masks.astype(np.float32)
+        inter = m @ m.T
+        sizes = m.sum(1)
+        ious = inter / np.maximum(sizes[:, None] + sizes[None, :] - inter, 1e-12)
+        pick = greedy_nms_np(ious, scores, cfg.TEST_NMS_THRESH)
+        masks, scores, sems = masks[pick], scores[pick], sems[pick]
 
-    # superpoint refinement (:106-123): per-point proposal id (later wins),
-    # majority vote per superpoint, re-mask, drop emptied proposals
-    n3 = masks.shape[1]
-    seg_result = np.full(n3, -100, np.int64)
-    for ci in range(masks.shape[0]):
-        seg_result[masks[ci] == 1] = ci
-    sp_labels, _ = align_superpoint_label(
-        seg_result, superpoint, num_label=masks.shape[0]
-    )
-    seg_result = sp_labels[superpoint]
-    new_masks = np.zeros_like(masks)
-    alive = []
-    for ci in range(masks.shape[0]):
-        idx = seg_result == ci
-        if idx.sum() == 0:
-            continue
-        new_masks[ci, idx] = 1
-        alive.append(ci)
-    if not alive:
-        return None
-    alive = np.array(alive)
-    masks, scores, sems = new_masks[alive], scores[alive], sems[alive]
+    with telemetry.span("pbnet.fold.superpoint"):
+        # superpoint refinement (:106-123): per-point proposal id (later wins),
+        # majority vote per superpoint, re-mask, drop emptied proposals
+        n3 = masks.shape[1]
+        seg_result = np.full(n3, -100, np.int64)
+        for ci in range(masks.shape[0]):
+            seg_result[masks[ci] == 1] = ci
+        sp_labels, _ = align_superpoint_label(
+            seg_result, superpoint, num_label=masks.shape[0]
+        )
+        seg_result = sp_labels[superpoint]
+        new_masks = np.zeros_like(masks)
+        alive = []
+        for ci in range(masks.shape[0]):
+            idx = seg_result == ci
+            if idx.sum() == 0:
+                continue
+            new_masks[ci, idx] = 1
+            alive.append(ci)
+        if not alive:
+            return None
+        alive = np.array(alive)
+        masks, scores, sems = new_masks[alive], scores[alive], sems[alive]
 
     label_ids = np.array(SEMANTIC_LABEL_IDX)[np.clip(sems, 0, 19)]
     return {

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import telemetry
 from ..ops import iou as iou_ops
 
 
@@ -86,6 +87,7 @@ def score_loss(clt_scores, prop_valid, point_pid, point_ins, point_kept,
     return (bce * vm).sum() / torch.clamp(vm.sum(), min=1.0)
 
 
+@telemetry.span("pbnet.losses")
 def model_fn(ret, batch, cfg_like, with_instances: bool):
     """(total loss, aux): the loss terms and every overflow counter as f32
     under the JAX package's keys.  ``cfg_like`` has ``fg_thresh`` and

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .. import resolve_device
+from .. import resolve_device, telemetry
 from ..config import StaticShapes
 from ..core import coords as ck
 from ..core import quantize as qz
@@ -119,15 +119,19 @@ class PBNet(nn.Module):
         self.eval()
 
     # ------------------------------------------------------------------
+    @telemetry.span("pbnet.backbone")
     @_no_grad_in_eval
     def backbone(self, batch: dict) -> dict:
         """Stage 1: voxel backbone, heads, voxel->point gather."""
         sh = self.shapes
-        level0, feats = make_level0(batch["vox_coords"], batch["vox_feats"], batch["vox_valid"])
-        topo = tp.build_unet_topology(level0, list(sh.voxel_caps))
-        if sh.onehot_spans and not self.training:
-            topo = onehot_conv.attach_plans(topo, sh.onehot_tm, sh.onehot_spans)
-        point_feat_v = self.MEUnet(topo, feats)  # (V, 32)
+        with telemetry.span("pbnet.backbone.topology"):
+            level0, feats = make_level0(batch["vox_coords"], batch["vox_feats"],
+                                        batch["vox_valid"])
+            topo = tp.build_unet_topology(level0, list(sh.voxel_caps))
+            if sh.onehot_spans and not self.training:
+                topo = onehot_conv.attach_plans(topo, sh.onehot_tm, sh.onehot_spans)
+        with telemetry.span("pbnet.backbone.unet"):
+            point_feat_v = self.MEUnet(topo, feats)  # (V, 32)
         v0 = topo.levels[0].valid
         sem_score_v = self.linear_sem(point_feat_v, v0)
         offset_v = self.linear_offset(point_feat_v, v0)
@@ -158,6 +162,7 @@ class PBNet(nn.Module):
         }
 
     # ------------------------------------------------------------------
+    @telemetry.span("pbnet.instance_stage")
     @_no_grad_in_eval
     def instance_stage(self, batch: dict, bb: dict, with_labels: bool) -> dict:
         """Stages 2+3.  ``bb`` is stage 1's output (or an injected one with
@@ -206,110 +211,114 @@ class PBNet(nn.Module):
         csem, cbatch, csize, cvalid = (res.cluster_sem, res.cluster_batch,
                                        res.cluster_size, res.cluster_valid)
 
-        # ---- cluster K-NN within (sem, batch) groups ----
-        group = torch.where(cvalid, csem * 64 + cbatch, -1)
-        same = (group[:, None] == group[None, :]) & cvalid[:, None] & cvalid[None, :]
-        d = res.centers[:, None, :] - res.centers[None, :, :]
-        dist = torch.where(
-            same, (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2],
-            float("inf"))
-        # neighbors sorted by distance (stable: ties keep index order)
-        knn = torch.argsort(dist, dim=1, stable=True)[:, :N_SLOTS].to(torch.int32)
-        group_size = same.sum(1, dtype=torch.int32)
-        para_k = torch.clamp(group_size - 1, max=K_MAX)
+        with telemetry.span("pbnet.local_scenes"):
+            # ---- cluster K-NN within (sem, batch) groups ----
+            group = torch.where(cvalid, csem * 64 + cbatch, -1)
+            same = (group[:, None] == group[None, :]) & cvalid[:, None] & cvalid[None, :]
+            d = res.centers[:, None, :] - res.centers[None, :, :]
+            dist = torch.where(
+                same, (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2],
+                float("inf"))
+            # neighbors sorted by distance (stable: ties keep index order)
+            knn = torch.argsort(dist, dim=1, stable=True)[:, :N_SLOTS].to(torch.int32)
+            group_size = same.sum(1, dtype=torch.int32)
+            para_k = torch.clamp(group_size - 1, max=K_MAX)
 
-        # ---- GT label per cluster: mode of member instance labels ----
-        if with_labels:
-            ins = batch["ins_label"].to(torch.int32)
-            I = sh.instance_cap
-            member = cid >= 0
-            ins_slot = torch.where(ins == -100, 0, torch.clamp(ins, 0, I - 1) + 1)
-            flat = torch.where(member, cid * (I + 1) + ins_slot, C * (I + 1))
-            counts = _segment_sum_i32(member, flat, C * (I + 1) + 1)[:-1].reshape(C, I + 1)
-            mode_slot = counts.argmax(1)  # first max: slot 0 (-100) wins ties
-            gt_label_c = torch.where(mode_slot == 0, -100, mode_slot - 1).to(torch.int32)
-            skip = cvalid & (gt_label_c == -100)
-        else:
-            gt_label_c = torch.full((C,), -100, dtype=torch.int32, device=dev)
-            skip = torch.zeros(C, dtype=torch.bool, device=dev)
+            # ---- GT label per cluster: mode of member instance labels ----
+            if with_labels:
+                ins = batch["ins_label"].to(torch.int32)
+                I = sh.instance_cap
+                member = cid >= 0
+                ins_slot = torch.where(ins == -100, 0, torch.clamp(ins, 0, I - 1) + 1)
+                flat = torch.where(member, cid * (I + 1) + ins_slot, C * (I + 1))
+                counts = _segment_sum_i32(member, flat, C * (I + 1) + 1)[:-1].reshape(C, I + 1)
+                mode_slot = counts.argmax(1)  # first max: slot 0 (-100) wins ties
+                gt_label_c = torch.where(mode_slot == 0, -100, mode_slot - 1).to(torch.int32)
+                skip = cvalid & (gt_label_c == -100)
+            else:
+                gt_label_c = torch.full((C,), -100, dtype=torch.int32, device=dev)
+                skip = torch.zeros(C, dtype=torch.bool, device=dev)
 
-        scene_c = cvalid & ~skip  # clusters that emit a local scene
-        pid_of_cluster = torch.where(
-            scene_c, torch.cumsum(scene_c.to(torch.int32), 0, dtype=torch.int32) - 1, -1)
-        num_proposals = scene_c.sum(dtype=torch.int32)
+            scene_c = cvalid & ~skip  # clusters that emit a local scene
+            pid_of_cluster = torch.where(
+                scene_c, torch.cumsum(scene_c.to(torch.int32), 0, dtype=torch.int32) - 1, -1)
+            num_proposals = scene_c.sum(dtype=torch.int32)
 
-        # ---- local-scene slot table ----
-        expand = scene_c & (
-            csize.to(torch.float32)
-            > torch.tensor(0.2, device=dev) * count_mean[torch.clamp(csem, 0, self.sem_num - 1).long()]
-        ) & (para_k > 0)
-        slot_idx = torch.arange(N_SLOTS, device=dev)
-        slot_valid = torch.where(
-            slot_idx[None, :] == 0, scene_c[:, None],
-            expand[:, None] & (slot_idx[None, :] - 1 < para_k[:, None]))
-        pk = para_k.to(torch.float32)[:, None]
-        sf = slot_idx[None, :].to(torch.float32)
-        peak = 0.5 * ((pk + 1.0) - (sf - 1.0)) / (pk + 1.0)
-        weight = torch.where(slot_idx[None, :] == 0, torch.ones_like(peak), peak)
-        src_cluster = torch.where(slot_valid, knn, 0)
+            # ---- local-scene slot table ----
+            expand = scene_c & (
+                csize.to(torch.float32)
+                > torch.tensor(0.2, device=dev)
+                * count_mean[torch.clamp(csem, 0, self.sem_num - 1).long()]
+            ) & (para_k > 0)
+            slot_idx = torch.arange(N_SLOTS, device=dev)
+            slot_valid = torch.where(
+                slot_idx[None, :] == 0, scene_c[:, None],
+                expand[:, None] & (slot_idx[None, :] - 1 < para_k[:, None]))
+            pk = para_k.to(torch.float32)[:, None]
+            sf = slot_idx[None, :].to(torch.float32)
+            peak = 0.5 * ((pk + 1.0) - (sf - 1.0)) / (pk + 1.0)
+            weight = torch.where(slot_idx[None, :] == 0, torch.ones_like(peak), peak)
+            src_cluster = torch.where(slot_valid, knn, 0)
 
-        # ---- ragged gather: flatten (cluster, slot) segments ----
-        cid_key = torch.where(cid >= 0, cid, C).to(torch.int32)
-        member_pts = torch.sort(cid_key, stable=True).indices
-        cluster_start = torch.cat([
-            torch.zeros(1, dtype=torch.int64, device=dev), torch.cumsum(csize, 0)[:-1]])
+            # ---- ragged gather: flatten (cluster, slot) segments ----
+            cid_key = torch.where(cid >= 0, cid, C).to(torch.int32)
+            member_pts = torch.sort(cid_key, stable=True).indices
+            cluster_start = torch.cat([
+                torch.zeros(1, dtype=torch.int64, device=dev), torch.cumsum(csize, 0)[:-1]])
 
-        seg_len = torch.where(slot_valid, csize[src_cluster.long()], 0).reshape(-1)
-        cum = torch.cumsum(seg_len.to(torch.int64), 0)
-        total = cum[-1].to(torch.int32)  # scene points actually needed
-        T = sh.local_point_cap
-        t_idx = torch.arange(T, device=dev)
-        # segj[t] = #{j: cum[j] <= t} (searchsorted-right)
-        marks = torch.bincount(torch.clamp(cum, max=T), minlength=T + 1)
-        segj = torch.cumsum(marks[:T], 0)
-        segj_c = torch.clamp(segj, 0, seg_len.shape[0] - 1)
-        seg_start = cum[segj_c] - seg_len[segj_c]
-        within = t_idx - seg_start
-        t_ok = t_idx < torch.clamp(total, max=T)
-        own_c = torch.div(segj_c, N_SLOTS, rounding_mode="floor")
-        sslot = torch.remainder(segj_c, N_SLOTS)
-        sc = src_cluster[own_c, sslot].long()
-        src_local = torch.clamp(cluster_start[sc] + within, 0, n - 1)
-        src_pt = member_pts[src_local]  # global point index per scene point
-        scene_w = weight[own_c, sslot]
-        scene_pid = torch.where(t_ok, pid_of_cluster[own_c], -1)
+            seg_len = torch.where(slot_valid, csize[src_cluster.long()], 0).reshape(-1)
+            cum = torch.cumsum(seg_len.to(torch.int64), 0)
+            total = cum[-1].to(torch.int32)  # scene points actually needed
+            T = sh.local_point_cap
+            t_idx = torch.arange(T, device=dev)
+            # segj[t] = #{j: cum[j] <= t} (searchsorted-right)
+            marks = torch.bincount(torch.clamp(cum, max=T), minlength=T + 1)
+            segj = torch.cumsum(marks[:T], 0)
+            segj_c = torch.clamp(segj, 0, seg_len.shape[0] - 1)
+            seg_start = cum[segj_c] - seg_len[segj_c]
+            within = t_idx - seg_start
+            t_ok = t_idx < torch.clamp(total, max=T)
+            own_c = torch.div(segj_c, N_SLOTS, rounding_mode="floor")
+            sslot = torch.remainder(segj_c, N_SLOTS)
+            sc = src_cluster[own_c, sslot].long()
+            src_local = torch.clamp(cluster_start[sc] + within, 0, n - 1)
+            src_pt = member_pts[src_local]  # global point index per scene point
+            scene_w = weight[own_c, sslot]
+            scene_pid = torch.where(t_ok, pid_of_cluster[own_c], -1)
 
-        # ---- scene features: [feat32 | class softmax | weight] ----
-        own_sem = torch.clamp(csem[own_c], 0, self.sem_num - 1).long()
-        sem_sf = bb["sem_soft_p"][src_pt, own_sem]
-        feat32 = bb["point_feat_p"][src_pt]
-        scene_feat = torch.cat([feat32, sem_sf[:, None], scene_w[:, None].to(torch.float32)], 1)
-        scene_feat = torch.where(t_ok[:, None], scene_feat, 0.0)
-        scene_xyz = torch.where(t_ok[:, None], xyz[src_pt], 0.0)
+            # ---- scene features: [feat32 | class softmax | weight] ----
+            own_sem = torch.clamp(csem[own_c], 0, self.sem_num - 1).long()
+            sem_sf = bb["sem_soft_p"][src_pt, own_sem]
+            feat32 = bb["point_feat_p"][src_pt]
+            scene_feat = torch.cat(
+                [feat32, sem_sf[:, None], scene_w[:, None].to(torch.float32)], 1)
+            scene_feat = torch.where(t_ok[:, None], scene_feat, 0.0)
+            scene_xyz = torch.where(t_ok[:, None], xyz[src_pt], 0.0)
 
-        if with_labels:
-            src_ins = batch["ins_label"][src_pt]
-            gt_mask = torch.where(
-                src_ins == -100, -1.0, (src_ins == gt_label_c[own_c]).to(torch.float32))
-            gt_mask = torch.where(t_ok, gt_mask, -1.0)
-        else:
-            gt_mask = torch.full((T,), -1.0, device=dev)
+            if with_labels:
+                src_ins = batch["ins_label"][src_pt]
+                gt_mask = torch.where(
+                    src_ins == -100, -1.0, (src_ins == gt_label_c[own_c]).to(torch.float32))
+                gt_mask = torch.where(t_ok, gt_mask, -1.0)
+            else:
+                gt_mask = torch.full((T,), -1.0, device=dev)
 
-        # ---- D_Unet over the re-voxelized local scenes ----
-        V2 = sh.local_voxel_caps[0]
-        q2 = qz.quantize_device(qz.true_div(scene_xyz, LOCAL_VOXEL), scene_pid, t_ok, V2)
-        lv2 = tp.level_from_quantize(q2)
-        feats2 = torch.where(lv2.valid[:, None], scene_feat[q2["voxel2point"].long()], 0.0)
-        # the JAX package derives these maps from the backbone's; the lookup
-        # build gives the same maps (pbnet_torch/core/topology.py)
-        topo2 = tp.build_unet_topology(lv2, list(sh.local_voxel_caps))
-        if sh.onehot_spans_local and not self.training:
-            topo2 = onehot_conv.attach_plans(topo2, sh.onehot_tm, sh.onehot_spans_local)
-        d_feat = self.D_Unet(topo2, feats2)
-        mask_v = self.linear_binary(d_feat, topo2.levels[0].valid)[:, 0]
-        p2v2 = q2["point2voxel"]
-        mask_score = torch.where(
-            t_ok & (p2v2 >= 0), mask_v[torch.clamp(p2v2, min=0).long()], 0.0)
+            # ---- D_Unet over the re-voxelized local scenes ----
+            V2 = sh.local_voxel_caps[0]
+            q2 = qz.quantize_device(qz.true_div(scene_xyz, LOCAL_VOXEL), scene_pid, t_ok, V2)
+            lv2 = tp.level_from_quantize(q2)
+            feats2 = torch.where(lv2.valid[:, None], scene_feat[q2["voxel2point"].long()], 0.0)
+            # the JAX package derives these maps from the backbone's; the lookup
+            # build gives the same maps (pbnet_torch/core/topology.py)
+            topo2 = tp.build_unet_topology(lv2, list(sh.local_voxel_caps))
+            if sh.onehot_spans_local and not self.training:
+                topo2 = onehot_conv.attach_plans(topo2, sh.onehot_tm, sh.onehot_spans_local)
+        with telemetry.span("pbnet.mask_unet"):
+            d_feat = self.D_Unet(topo2, feats2)
+            mask_v = self.linear_binary(d_feat, topo2.levels[0].valid)[:, 0]
+            p2v2 = q2["point2voxel"]
+            mask_score = torch.where(
+                t_ok & (p2v2 >= 0), mask_v[torch.clamp(p2v2, min=0).long()], 0.0)
 
         # ---- get_proposal: threshold + drop null proposals ----
         kept = t_ok & (mask_score > MASK_THRESH) & (scene_pid >= 0)
@@ -370,53 +379,54 @@ class PBNet(nn.Module):
             vb3 = topo3.levels[0].coords[:, 0]
             score_count = q3["count"]
             score_overflow = torch.clamp(q3["count"] - V3, min=0) + topo3.level_overflow
-        iou_feat = self.score_Unet(topo3, feats3)
-        iou_feat = self.linear_IOU_feat(iou_feat, v3_valid)
-        gfeat = (sparse_ops.global_pool(iou_feat, vb3, v3_valid, P, "max")
-                 + sparse_ops.global_pool(iou_feat, vb3, v3_valid, P, "avg"))
-        pvalid2 = torch.arange(P, device=dev) < num_final
-        clt_scores = self.linear_IOU(gfeat, pvalid2)[:, 0]
+        with telemetry.span("pbnet.score_net"):
+            iou_feat = self.score_Unet(topo3, feats3)
+            iou_feat = self.linear_IOU_feat(iou_feat, v3_valid)
+            gfeat = (sparse_ops.global_pool(iou_feat, vb3, v3_valid, P, "max")
+                     + sparse_ops.global_pool(iou_feat, vb3, v3_valid, P, "avg"))
+            pvalid2 = torch.arange(P, device=dev) < num_final
+            clt_scores = self.linear_IOU(gfeat, pvalid2)[:, 0]
 
-        overflow = {
-            "cluster_band": res.band_overflow,
-            "cluster_nn": res.nn_overflow,
-            "fg_points": fg_overflow,
-            "scene_points": torch.clamp(total - T, min=0),
-            "local_vox": torch.clamp(q2["count"] - V2, min=0) + topo2.level_overflow,
-            "local_grid": topo2.grid_overflow,
-            # topo3 derives from topo2 (same maps and plans): counted once
-            "conv_band": topo2.plan_overflow,
-            "score_vox": score_overflow,
-            "score_grid": topo3.grid_overflow,
-        }
-        usage = {
-            "scene_points": total,
-            "local_vox": q2["count"],
-            "score_vox": score_count,
-            "fg_points": fg.sum(dtype=torch.int32),
-            "kept_points": kept.sum(dtype=torch.int32),
-        }
-        return {
-            "cluster": res,
-            "num_proposals": num_proposals,
-            "overflow": overflow,
-            "usage": usage,
-            "scene_total": total,
-            "scene_overflow": torch.clamp(total - T, min=0),
-            "mask_scores": mask_score,
-            "gt_mask": gt_mask,
-            "scene_valid": t_ok,
-            "scene_pid": scene_pid,
-            "scene_src": src_pt,
-            "prop_point_src": src_pt,
-            "prop_point_pid": final_pid,
-            "prop_point_kept": kept,
-            "prop_point_mask_score": torch.where(kept, mask_score, 0.0),
-            "num_final_proposals": num_final,
-            "prop_sem": sem_of_pid2,
-            "prop_valid": pvalid2,
-            "clt_scores": clt_scores,
-        }
+            overflow = {
+                "cluster_band": res.band_overflow,
+                "cluster_nn": res.nn_overflow,
+                "fg_points": fg_overflow,
+                "scene_points": torch.clamp(total - T, min=0),
+                "local_vox": torch.clamp(q2["count"] - V2, min=0) + topo2.level_overflow,
+                "local_grid": topo2.grid_overflow,
+                # topo3 derives from topo2 (same maps and plans): counted once
+                "conv_band": topo2.plan_overflow,
+                "score_vox": score_overflow,
+                "score_grid": topo3.grid_overflow,
+            }
+            usage = {
+                "scene_points": total,
+                "local_vox": q2["count"],
+                "score_vox": score_count,
+                "fg_points": fg.sum(dtype=torch.int32),
+                "kept_points": kept.sum(dtype=torch.int32),
+            }
+            return {
+                "cluster": res,
+                "num_proposals": num_proposals,
+                "overflow": overflow,
+                "usage": usage,
+                "scene_total": total,
+                "scene_overflow": torch.clamp(total - T, min=0),
+                "mask_scores": mask_score,
+                "gt_mask": gt_mask,
+                "scene_valid": t_ok,
+                "scene_pid": scene_pid,
+                "scene_src": src_pt,
+                "prop_point_src": src_pt,
+                "prop_point_pid": final_pid,
+                "prop_point_kept": kept,
+                "prop_point_mask_score": torch.where(kept, mask_score, 0.0),
+                "num_final_proposals": num_final,
+                "prop_sem": sem_of_pid2,
+                "prop_valid": pvalid2,
+                "clt_scores": clt_scores,
+            }
 
     # ------------------------------------------------------------------
     @_no_grad_in_eval

@@ -18,6 +18,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from .. import telemetry
 from ..tools import work
 from . import sparse_ops
 
@@ -69,6 +70,8 @@ class SparseLinear(nn.Module):
     def forward(self, feats, valid):
         if work.ACTIVE:
             work.dense(valid, *self.weight.shape[::-1])
+        # executed over every row, padding included
+        telemetry.count("conv.executed_ops", 2 * feats.shape[0] * self.weight.numel())
         y = torch.matmul(feats, self.weight.t())
         if self.bias is not None:
             y = y + self.bias
@@ -83,14 +86,16 @@ class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        y = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(y, group=group)
+        with telemetry.span("pbnet.syncbn"):
+            y = x.clone(memory_format=torch.contiguous_format)
+            dist.all_reduce(y, group=group)
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        dx = dy.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(dx, group=ctx.group)
+        with telemetry.span("pbnet.syncbn"):
+            dx = dy.clone(memory_format=torch.contiguous_format)
+            dist.all_reduce(dx, group=ctx.group)
         return dx, None
 
 

@@ -36,7 +36,7 @@ from dataclasses import dataclass
 
 import torch
 
-from .. import _build
+from .. import _build, telemetry
 
 # Below this many input channels the conv keeps the gather path (the JAX
 # package's gate, which the port keeps so both run the same convs banded).
@@ -157,6 +157,7 @@ def onehot_conv_plain(feats, plan: OnehotPlan, weights, valid_out,
 
     kmap = plan_map(plan)
     k, cin, cout = weights.shape
+    telemetry.count("conv.executed_ops", 2 * kmap.shape[0] * k * cin * cout)
     g = take_rows0(feats.to(compute_dtype), kmap).reshape(kmap.shape[0], k * cin)
     w = weights.to(compute_dtype).reshape(k * cin, cout)
     y = torch.matmul(g.float(), w.float())
@@ -232,6 +233,9 @@ def onehot_conv(feats, plan: OnehotPlan, weights, valid_out,
     check("rel", plan.rel, torch.int32, (nt, tm, K), dev)
     t = tiling(m_out, K, cin, cout, _sm_count(dev))
     w_pitch = t.strips * t.bn
+    # what the blocks may walk: every row and slot at the padded widths (a
+    # warp that skips a slot none of its rows uses is not seen on the host)
+    telemetry.count("conv.executed_ops", 2 * m_out * K * t.cin_p * w_pitch)
     out = torch.empty((m_out, cout), dtype=torch.float32, device=dev)
     feats_bf = torch.empty((plan.m_in, t.cin_p), dtype=torch.bfloat16, device=dev)
     w_bf = torch.empty((K, t.cin_p, w_pitch), dtype=torch.bfloat16, device=dev)

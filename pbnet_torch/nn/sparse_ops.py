@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import telemetry
 from ..tools import work
 from . import onehot_conv
 
@@ -34,6 +35,9 @@ def take_rows0(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def _conv_fwd(feats, kmap, weights, valid_out):
     k, cin, cout = weights.shape
+    # every (row, column) entry of the map is multiplied: padded rows and
+    # absent entries (zero rows) included
+    telemetry.count("conv.executed_ops", 2 * kmap.shape[0] * k * cin * cout)
     g = take_rows0(feats.to(COMPUTE_DTYPE), kmap).reshape(kmap.shape[0], k * cin)
     w = weights.to(COMPUTE_DTYPE).reshape(k * cin, cout)
     return torch.where(valid_out[:, None], torch.matmul(g.float(), w.float()), 0.0)

@@ -36,6 +36,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import telemetry
 from . import window_kernels as wk
 
 INF_I32 = 2**31 - 1
@@ -84,6 +85,7 @@ def _i32(v, dev) -> torch.Tensor:
     return torch.tensor(v, dtype=torch.int32, device=dev)
 
 
+@telemetry.span("pbnet.cluster")
 def binary_cluster(
     shifted: torch.Tensor,  # (N, 3) f32 offset-shifted coords
     orig: torch.Tensor,  # (N, 3) f32 original coords
@@ -215,16 +217,19 @@ def binary_cluster(
 
     rounds = 0
     changed = True
-    while rounds < prop_iters and changed:
-        best = wk.masked_window_reduce(bits_hp[0], bits_hp[1], label_p[w_idx],
-                                       label_p[w_idx2], minimize=True)
-        cur = label_p.reshape(nchunks, chunk)
-        new = torch.where(hp_r, torch.minimum(cur, best), cur).reshape(npad)
-        for _ in range(4):
-            new = jump(new)
-        changed = bool((new != label_p).any())  # one host read per round
-        label_p = new
-        rounds += 1
+    with telemetry.span("pbnet.cluster.propagate"):
+        while rounds < prop_iters and changed:
+            best = wk.masked_window_reduce(bits_hp[0], bits_hp[1], label_p[w_idx],
+                                           label_p[w_idx2], minimize=True)
+            cur = label_p.reshape(nchunks, chunk)
+            new = torch.where(hp_r, torch.minimum(cur, best), cur).reshape(npad)
+            for _ in range(4):
+                new = jump(new)
+            # one host read per round
+            changed = bool(telemetry.host_read((new != label_p).any()))
+            label_p = new
+            rounds += 1
+    telemetry.count("cluster.rounds", rounds)
     prop_rounds = _i32(rounds, dev)
     label_s = label_p[:n]  # HP -> root (sorted index); LP/invalid -> INF
 
@@ -325,20 +330,22 @@ def binary_cluster(
     nn_overflow = torch.clamp(need_f.sum(dtype=torch.int32) - F, min=0).to(torch.int32)
     cid_exact = torch.full((F,), -1, dtype=torch.int32, device=dev)
     cols = torch.arange(npad, device=dev)
-    n_live = int(f_live.sum())
-    block = max(1, EXACT_BLOCK_ELEMS // npad)
-    for r0 in range(0, n_live, block):
-        rows = f_rows[r0:min(r0 + block, n_live)]
-        q = orig_s[rows]
-        q_g = g_s[rows]
-        d2 = wk.sq_dist(q[:, 0:1], q[:, 1:2], q[:, 2:3],
-                        orig_p[None, :, 0], orig_p[None, :, 1], orig_p[None, :, 2])
-        mok = assigned_p[None, :] & (g_p[None, :] == q_g[:, None])
-        d2m = torch.where(mok, d2, inf)
-        # LAST minimum in sorted order (the reference's `dist <= best` scan)
-        j2 = torch.where(d2m == d2m.amin(1, keepdim=True), cols[None], -1).amax(1)
-        found2 = assigned_p[j2] & (g_p[j2] == q_g)
-        cid_exact[r0:r0 + rows.shape[0]] = torch.where(found2, cid_p[j2], -1)
+    with telemetry.span("pbnet.cluster.exact_nn"):
+        n_live = int(telemetry.host_read(f_live.sum()))
+        telemetry.count("cluster.exact_rows", n_live)
+        block = max(1, EXACT_BLOCK_ELEMS // npad)
+        for r0 in range(0, n_live, block):
+            rows = f_rows[r0:min(r0 + block, n_live)]
+            q = orig_s[rows]
+            q_g = g_s[rows]
+            d2 = wk.sq_dist(q[:, 0:1], q[:, 1:2], q[:, 2:3],
+                            orig_p[None, :, 0], orig_p[None, :, 1], orig_p[None, :, 2])
+            mok = assigned_p[None, :] & (g_p[None, :] == q_g[:, None])
+            d2m = torch.where(mok, d2, inf)
+            # LAST minimum in sorted order (the reference's `dist <= best` scan)
+            j2 = torch.where(d2m == d2m.amin(1, keepdim=True), cols[None], -1).amax(1)
+            found2 = assigned_p[j2] & (g_p[j2] == q_g)
+            cid_exact[r0:r0 + rows.shape[0]] = torch.where(found2, cid_p[j2], -1)
 
     cid_final_s = torch.where(need & found_band_f, cid_band, cid_filtered)
     ext = torch.cat([cid_final_s, torch.full((1,), -1, dtype=torch.int32, device=dev)])

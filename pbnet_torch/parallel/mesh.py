@@ -13,6 +13,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from .. import telemetry
+
 DATA_AXIS = "data"
 
 
@@ -44,6 +46,7 @@ def rank_batches(batches: list, local_rank: int, local_world: int) -> list:
     return batches[local_rank:n:local_world]
 
 
+@telemetry.span("pbnet.allreduce")
 def pmean_(tensors: list[torch.Tensor], group) -> None:
     """Average ``tensors`` over ``group`` in place with one all-reduce of
     their flattened concatenation (``jax.lax.pmean``)."""

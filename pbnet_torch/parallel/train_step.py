@@ -19,6 +19,7 @@ from collections.abc import Mapping
 
 import torch
 
+from .. import telemetry
 from ..models import losses as L
 from .mesh import pmean_
 
@@ -141,6 +142,7 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer, cf
     return step
 
 
+@telemetry.span("pbnet.update")
 def finish_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer, cfg, aux: dict,
                 lr: float, group=None) -> dict:
     """The step after ``backward``: ``apply_gradients``, then the aux values
@@ -165,6 +167,7 @@ EVAL_KEYS = ("sem_pred_p", "overflow_vox", "overflow_grid", "overflow_band", "ov
              "prop_point_pid", "num_final_proposals", "clt_scores", "prop_sem")
 
 
+@telemetry.span("pbnet.host_outputs")
 def host_outputs(ret: dict) -> dict:
     """The outputs in ``EVAL_KEYS`` copied to numpy on the calling thread
     (the copy waits for the device), so that worker threads read finished
@@ -172,7 +175,7 @@ def host_outputs(ret: dict) -> dict:
     def host(v):
         if isinstance(v, dict):
             return {k: host(x) for k, x in v.items()}
-        return v.detach().cpu().numpy()
+        return telemetry.host_read(v).detach().cpu().numpy()
 
     return {k: host(ret[k]) for k in EVAL_KEYS if k in ret}
 
