@@ -6,9 +6,10 @@
 Phases (each prints its progress; any failed check raises and the script
 exits non-zero — no phase catches its own failure):
 
-1. build     nvcc-compile csrc/window_kernels.cu and csrc/onehot_conv.cu for
-             sm_90a (with ``--baseline``, the baseline's window kernels
-             too), one nvcc per source, all started together; print
+1. build     nvcc-compile csrc/window_kernels.cu, csrc/onehot_conv.cu and
+             csrc/gather_gemm.cu for sm_90a (with ``--baseline``, the
+             baseline's window kernels too), one nvcc per source, all
+             started together; print
              ptxas's report; read B1's, B2's and B4's hot loops from the
              SASS (cuobjdump): instructions per pair test (B1, B4) and per
              bit and row (B2).
@@ -45,8 +46,22 @@ exits non-zero — no phase catches its own failure):
              conv on the same map and weights (``library_ms``) are timed;
              each shape's line gives the kernel/gather-conv ratio and the
              launch's block count, and a last line counts the shapes where
-             the kernel is slower (a number, not a gate).  Edge cases at
-             small tiles are in tests/test_torch_cuda.py.
+             the kernel is slower (a number, not a gate).  The fused
+             gather-GEMM (``sparse_ops.gather_gemm``, every gather conv's
+             forward) at every (topology, map kind, level, Cin, Cout) one
+             more gather request launches, and at the benchmark eval
+             cell's 1.0 bucket (``BUCKET_ROWS``: the stem's and the main k3
+             L1 32->32 maps stacked to 327,680 and 172,032 rows): every
+             output within ``sparse_ops.gemm_error_bound`` of the plain
+             version (``2 n 2^-24 sum |x||w|``, n = K * Cin: two orders of
+             the same f32 sum), exact zeros where valid_out is false, one
+             counted launch per call, a repeat equal bit for bit; kernel,
+             plain version and bound (``gemm_bound``: the least bytes, the
+             f32 table and weights read once, the map, the mask and the
+             output, over HBM bandwidth, against the present entries'
+             operations at 989 TFLOP/s) timed, and summed per
+             request.  Edge cases at small tiles are in
+             tests/test_torch_cuda.py.
 3. cluster   binary_cluster on the card and on the CPU (plain path) from the
              same reduced bench scene (30k points, oracle semantics; oracle
              offsets and offsets with 4 cm noise): every ClusterResult field
@@ -64,7 +79,9 @@ exits non-zero — no phase catches its own failure):
              Launch counters are zeroed just before each request and read
              just after: every kernel of the path must have run (the banded
              conv on the banded path only), B4 once per clustering call (as
-             often as B1); clusters > 0, proposals > 0,
+             often as B1); every sparse conv through a kernel (gather-GEMM
+             and banded launches add up to the ``gather_conv`` calls, no
+             plain forward); clusters > 0, proposals > 0,
              zero overflow (overflow_band and conv_band included), finite
              outputs; the banded path's cluster and scene ids equal the
              gather path's and its scores lie within ``SCORE_ATOL``.
@@ -103,8 +120,9 @@ exits non-zero — no phase catches its own failure):
              gradient norm in every module
              the phase trains (all three UNets and every head in the full
              phase); parameters changed; a later loss below the first.  No
-             banded conv runs under grad.  Median ms/step (CUDA-synchronised
-             wall time) and peak device memory per phase.
+             banded conv and no gather-GEMM runs under grad.  Median
+             ms/step (CUDA-synchronised wall time) and peak device memory
+             per phase.
 10. train-engine
              ``engine.train`` with no device argument (CUDA by default) on
              the tiny synthetic dataset for 2 iterations: a checkpoint and
@@ -128,7 +146,7 @@ exits non-zero — no phase catches its own failure):
              bucket, overflow counters, B1-B4 launches, decode s, collate s,
              forward ms, peak memory and host-eval s.  Gates: zero overflow;
              each of B1-B4 launched on every scene (B4 once per clustering
-             call), B5 and B6 on none; at
+             call), the gather-GEMM in the run, B5 and B6 on none; at
              least two buckets and one cropped scene; a proposal scored;
              every metric finite in [0, 1]; a submission file for the test
              scene.  B1-B4 then equal their plain versions exactly at the
@@ -146,7 +164,7 @@ exits non-zero — no phase catches its own failure):
              prints its table.  Gates: no converted tensor unmatched, every
              converted tensor equal to its source, the metrics finite in
              [0, 1], zero overflow, B1-B4 launched (B4 once per clustering
-             call), B5 and B6 not; the phase's seconds.
+             call), the gather-GEMM, B5 and B6 not; the phase's seconds.
 14. ddp       data parallelism.  (a) NCCL at world size 1: one full-phase
              train step at full width on the bench scene (f32 conv
              operands) through the distributed step (SyncBN and the
@@ -191,12 +209,16 @@ exits non-zero — no phase catches its own failure):
              last stdout line) finite and > 0; in each of the 10 timed
              requests (one stderr line each, the subprocess's own launch
              counters zeroed before it) clusters > 0, zero overflow, B1-B4
-             launched, B4 once per clustering call, B6 in the banded run
-             only, B5 never; 0 < mfu <= 1 and 0 < mfu_f32 <= 1; the executed
-             GEMM operations over the GEMM family's device time within the
-             f32 peak (a count the card could not have done is a counting
-             fault); the production extent's ids equal the headline's; the
-             useful count of stages 1 and 2 equal in both runs (the same
+             launched, B4 once per clustering call, the gather-GEMM
+             launched, B6 in the banded run only, B5 never; 0 < mfu <= 1 and
+             0 < mfu_f32 <= 1; the executed GEMM operations over their
+             device time, by route, within the peak of the units they run
+             on: the gather-GEMM kernel's padded count within the bf16
+             tensor-core peak, the rest of the GEMM family's within the f32
+             peak (a count the card could not have done is a counting
+             fault); the
+             production extent's ids equal the headline's; the useful count
+             of stages 1 and 2 equal in both runs (the same
              maps), and of stage 3 too where both kept the same points.
              Headline, stage split, device busy and idle share, mfu,
              train-step ms and peak memory per run; the phase's seconds.
@@ -215,12 +237,14 @@ exits non-zero — no phase catches its own failure):
              unchanged: AP25 >= 0.9, mAP > 0, the semantic loss < 1.0 after
              the backbone steps and lower at the end, the mask and score
              losses falling; and each of B1-B4 launched in every full step
-             and every evaluated scene, B4 once per clustering call, B5 and
-             B6 never, every overflow counter of the train steps and of
-             evaluate 0.  Every call of B1-B4 in the run is recorded; at
-             each call of the last full step and of the last evaluate (this
-             path's shapes: cluster band 1024, point cap 4096) each kernel
-             must equal its plain version exactly, timed beside its bound.
+             and every evaluated scene, B4 once per clustering call, the
+             gather-GEMM in every evaluated scene (``engine.evaluate``'s
+             per-scene launches) and in no full step, B5 and B6 never, every overflow
+             counter of the train steps and of evaluate 0.  Every call of
+             B1-B4 in the run is recorded; at each call of the last full
+             step and of the last evaluate (this path's shapes: cluster
+             band 1024, point cap 4096) each kernel must equal its plain
+             version exactly, timed beside its bound.
              Prints ms per backbone and full step (medians), AP25 per round,
              the last evaluate's propagation rounds (B2 launches per B1
              launch) and B4 needy rows per call.
@@ -243,8 +267,8 @@ exits non-zero — no phase catches its own failure):
              rows counted).
 ``python3 chip_smoke.py --only <phase>`` (data-eval, parity, ddp,
 bottleneck, resnet, bench, eval-throughput, overfit, overfit-heldout,
-trained-cluster) runs the build and that phase alone and prints no result
-lines.
+trained-cluster, and gather_gemm: phase 2's gather-GEMM part on the bench
+scene) runs the build and that phase alone and prints no result lines.
 ``python3 chip_smoke.py --baseline DIR [...]``: DIR holds a checkout from
 before B4's rebuild (commit 8062b0f, e.g. unpacked by ``git archive``);
 phase 2 builds its csrc/window_kernels.cu and times its B4 design (one
@@ -258,10 +282,14 @@ TF32 is switched off for matmuls and cuDNN: the port's f32 GEMMs run in full
 f32, so the CPU comparisons hold at the stated tolerances.
 
 The card line comes third from last; the kernels JSON, second from last,
-lists the counterparts of all six TPU kernels.  ``launches`` counts the
+lists the counterparts of all six TPU kernels and the gather-GEMM (which
+replaces none).  ``launches`` counts the
 kernel's launches over the main phase's requests of the path it serves
-(B1-B4: gather, B6: banded; ``launches_by_path`` has both); B5 is on no
-path.  B6's ``ms``,
+(B1-B4 and the gather-GEMM: gather, B6: banded; ``launches_by_path`` has
+both); B5 is on no path.  The gather-GEMM's ``ms``, ``plain_ms`` and
+``bound_ms`` are per gather request (each shape's time times its calls),
+its ``shapes`` each shape's row (the 1.0-bucket rows with
+``per_request`` 0).  B6's ``ms``,
 ``plain_ms``, ``bound_ms`` and ``library_ms`` are per banded request: each
 shape's time times its launches in one request, summed (``shapes`` lists
 them).  ``launches_by_path["train"]`` counts B1-B4 over the 5 timed
@@ -301,7 +329,12 @@ import time
 
 # the clustering kernels (B1-B4), captured from the gather path
 KERNELS = ("neighbor_pack", "masked_window_reduce", "masked_window_border", "window_1nn")
-ALL_KERNELS = KERNELS + ("masked_window_match_pick", "onehot_conv")
+# the fused gather-GEMM (nn/sparse_ops.gather_gemm), the forward of every
+# gather conv with gradients off, on every path (the banded path bands only
+# convs of at least onehot_conv.MIN_CIN channels); a training step keeps the
+# plain forward
+GEMM = "gather_gemm"
+ALL_KERNELS = KERNELS + ("masked_window_match_pick", "onehot_conv", GEMM)
 TPU_KERNEL = {
     "neighbor_pack": "pbnet_tpu/ops/pallas_kernels.py:151",
     "masked_window_reduce": "pbnet_tpu/ops/pallas_kernels.py:77",
@@ -309,13 +342,19 @@ TPU_KERNEL = {
     "window_1nn": "pbnet_tpu/ops/pallas_kernels.py:247",
     "masked_window_match_pick": "pbnet_tpu/ops/pallas_kernels.py:383",
     "onehot_conv": "pbnet_tpu/nn/onehot_conv.py:204",
+    GEMM: "none: the JAX package leaves gather_conv to XLA",
 }
 SOURCE = {k: "pbnet_torch/csrc/window_kernels.cu" for k in ALL_KERNELS}
 SOURCE["onehot_conv"] = "pbnet_torch/csrc/onehot_conv.cu"
+SOURCE[GEMM] = "pbnet_torch/csrc/gather_gemm.cu"
 PATHS = ("gather", "banded")
 # the path each kernel serves (its ``launches``); B5 serves none
 SERVES = {k: "gather" for k in KERNELS}
-SERVES.update(masked_window_match_pick=None, onehot_conv="banded")
+SERVES.update(masked_window_match_pick=None, onehot_conv="banded", **{GEMM: "gather"})
+# output rows of the benchmark's eval cell at its 1.0 bucket
+# (port_bench/traffic/eval-tta.json caps), by level: the gather-GEMM is also
+# held and timed there, on the bench scene's map repeated to that height
+BUCKET_ROWS = {0: 327_680, 1: 172_032}
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W limit).  Its 67
 # TFLOP/s in f32 counts an FMA as two operations; the kernels are built with
 # -fmad=false, so every f32 add, multiply or compare is one instruction, and
@@ -413,6 +452,13 @@ TINY_EVAL = dict(
 
 def log(msg):
     print(msg, flush=True)
+
+
+def on_path(k, banded=False, train=False):
+    """Whether kernel ``k`` runs on a path: B1-B4 on every path, the
+    gather-GEMM on every evaluation path (not in a training step), the
+    banded conv on the banded path only, B5 on none."""
+    return k in KERNELS or (k == GEMM and not train) or (k == "onehot_conv" and banded)
 
 
 def nbytes(*ts):
@@ -791,6 +837,136 @@ def b6_bound(feats, plan, weights, valid_out, out):
             f"{n_bytes / 1e6:.3f} MB, {present} entries, {flops / 1e9:.3f} GFLOP")
 
 
+def gemm_key(sh, feats, kmap, weights):
+    """'<topology> <map kind> L<output level> <Cin>-><Cout>' of a gather
+    conv call (the main and local caps are disjoint)."""
+    m_out, K = kmap.shape
+    _, cin, cout = weights.shape
+    topo = "main" if m_out in sh.voxel_caps else "local"
+    caps = list(sh.voxel_caps if topo == "main" else sh.local_voxel_caps)
+    kind = {125: "stem", 27: "k3", 1: "1x1"}.get(K) or (
+        "down" if m_out < feats.shape[0] else "up")
+    return f"{topo} {kind} L{caps.index(m_out) if m_out in caps else '?'} {cin}->{cout}"
+
+
+def gemm_bound(feats, kmap, weights, valid, out):
+    """(bound_ms, bound_by, detail) of one gather-GEMM call: the least the
+    call must move over HBM bandwidth (the f32 table and weights read once,
+    the map, valid_out, the f32 output written once; a row that several
+    entries read comes from L2 after the first), against 2 * (present
+    entries) * Cin * Cout flops at the bf16 tensor-core rate."""
+    _, cin, cout = weights.shape
+    present = int((kmap >= 0).sum())
+    n_bytes = nbytes(feats, weights, kmap, valid, out)
+    flops = 2 * present * cin * cout
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
+            f"{n_bytes / 1e6:.3f} MB, {present} entries, {flops / 1e9:.3f} GFLOP")
+
+
+def repeated(args, rows):
+    """A gather conv's arguments with its map stacked on itself (each copy
+    reading its own copy of the table) to ``rows`` output rows."""
+    import torch
+
+    feats, kmap, w, valid, bias = args
+    reps = -(-rows // kmap.shape[0])
+    m_in = feats.shape[0]
+    km = torch.cat([torch.where(kmap >= 0, kmap + i * m_in, -1) for i in range(reps)])
+    return (feats.repeat(reps, 1), km[:rows].contiguous(), w, valid.repeat(reps)[:rows], bias)
+
+
+def hold_gemm(key, args, n):
+    """The gather-GEMM at one call's arguments: within ``gemm_error_bound``
+    of the plain version at every output, exact zeros where valid_out is
+    false, one counted launch per call, a second launch equal bit for bit;
+    kernel (median of 20 launches), plain version (median of 3) and bound
+    timed.  Returns the shape's row of the kernels JSON."""
+    import torch
+
+    from pbnet_torch.nn import sparse_ops as so
+
+    feats, kmap, w, valid, bias = args
+    before = so.LAUNCHES[GEMM]
+    got = so.gather_gemm(*args)
+    again = so.gather_gemm(*args)
+    torch.cuda.synchronize()
+    if so.LAUNCHES[GEMM] != before + 2:
+        raise AssertionError(f"{key}: {so.LAUNCHES[GEMM] - before} launches for 2 calls")
+    want = so._conv_fwd(*args)
+    tol = so.gemm_error_bound(feats, kmap, w)
+    err = (got - want).abs()
+    if not bool((err <= tol).all()):
+        raise AssertionError(f"{key}: outside the bound at {int((err > tol).sum())} outputs "
+                             f"(max |diff| {float(err.max())})")
+    if not torch.equal(got[~valid], torch.zeros_like(got[~valid])):
+        raise AssertionError(f"{key}: a row with valid_out false is not 0")
+    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError(f"{key}: two launches of the gather-GEMM differ")
+    ms = time_kernel(lambda: so.gather_gemm(*args))
+    plain_ms = time_plain(lambda: so._conv_fwd(*args))
+    bms, by, detail = gemm_bound(feats, kmap, w, valid, got)
+    t = so.gemm_tiling(*w.shape)
+    share = float((err / tol.clamp_min(1e-30)).max())
+    log(f"[kernels] {GEMM} {key} ({kmap.shape[0]} rows) x{n}/request: max |diff| "
+        f"{float(err.max()):.3e} ({share:.4f} of the bound at worst), repeat bitwise equal; "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}; {detail}; "
+        f"the kernel at {bms / ms:.3f} of it); blocks {t.bm} x {t.bn}, cin_p {t.cin_p}")
+    return dict(shape=key, rows=kmap.shape[0], per_request=n, max_abs_err=float(err.max()),
+                bound_share=share, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+
+
+@contextlib.contextmanager
+def gemm_calls(sh):
+    """While open, every call of ``sparse_ops.gather_gemm`` is recorded by
+    ``gemm_key``: yields {key: (args of its first call, calls)}."""
+    from pbnet_torch.nn import sparse_ops as so
+
+    calls = {}
+    original = so.gather_gemm
+
+    def recorder(feats, kmap, weights, valid_out, bias=None):
+        key = gemm_key(sh, feats, kmap, weights)
+        args, n = calls.get(key, ((feats, kmap, weights, valid_out, bias), 0))
+        calls[key] = (args, n + 1)
+        return original(feats, kmap, weights, valid_out, bias)
+
+    so.gather_gemm = recorder
+    try:
+        yield calls
+    finally:
+        so.gather_gemm = original
+
+
+@contextlib.contextmanager
+def conv_calls():
+    """While open, counts the calls of ``sparse_ops.gather_conv`` (every
+    sparse conv of the models): yields {"convs": n}."""
+    from pbnet_torch.nn import sparse_ops as so
+
+    n = {"convs": 0}
+    conv = so.gather_conv
+
+    def counted_conv(*a, **kw):
+        n["convs"] += 1
+        return conv(*a, **kw)
+
+    so.gather_conv = counted_conv
+    try:
+        yield n
+    finally:
+        so.gather_conv = conv
+
+
+def engaged(counts, n, where):
+    """Every gather conv of a request went through a kernel: the gather-GEMM
+    and banded-conv launches add up to the convs.  A conv launches one
+    kernel or runs its plain forward, so no plain forward ran."""
+    if counts[GEMM] + counts["onehot_conv"] != n["convs"]:
+        raise AssertionError(f"{where}: {n['convs']} sparse convs, {counts[GEMM]} gather-GEMM "
+                             f"and {counts['onehot_conv']} banded launches")
+
+
 def close_err(got, want, rtol):
     """Max |got - want|; raises unless it is within rtol of max |want|."""
     err = (got - want).abs().max().item()
@@ -1020,8 +1196,8 @@ def data_eval_phase(card, reset_launches, launches, device="cuda"):
             raise AssertionError(f"data-eval: clustering kernels not launched {unlaunched}")
         for r in per_scene:
             b4_once(r["launches"], f"data-eval {r['fn']}")
-        if any(counts[k] for k in ALL_KERNELS if k not in KERNELS):
-            raise AssertionError(f"data-eval: a kernel off this path ran {counts}")
+        if any(counts[k] for k in ALL_KERNELS if not on_path(k)) or counts[GEMM] <= 0:
+            raise AssertionError(f"data-eval: launches {counts}")
         buckets = {r["bucket"] for r in per_scene}
         cropped = [r["fn"] for r in per_scene if r["points"] < 3 * scenes[r["fn"]][0]]
         if len(buckets) < 2 or len(cropped) != 1:
@@ -1060,6 +1236,8 @@ def data_eval_phase(card, reset_launches, launches, device="cuda"):
                 f"{r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']}; {detail}); {counts[name]} launches over {len(per_scene)} "
                 f"scenes")
+        kernel_rows[GEMM] = dict(launches=counts[GEMM],
+                                 launches_per_scene=counts[GEMM] / len(per_scene))
 
         # the submission of the test split, written under the working directory
         cwd = os.getcwd()
@@ -1110,8 +1288,9 @@ def parity_phase(card, reset_launches, launches):
     by ``convert_checkpoint.write_reference_pth``; then ``main`` with ``--scans``
     (decode, val_gt, convert, evaluate).  Gates: no converted tensor
     unmatched; every converted tensor equal to its source; the metrics
-    finite in [0, 1]; zero overflow; B1-B4 launched, B4 once per clustering
-    call, B5 and B6 not at all.  Returns {kernel: launches}."""
+    finite in [0, 1]; zero overflow; B1-B4 and the gather-GEMM launched, B4
+    once per clustering call, B5 and B6 not at all.  Returns {kernel:
+    launches}."""
     import numpy as np
     import torch
 
@@ -1169,8 +1348,7 @@ def parity_phase(card, reset_launches, launches):
     (scene,) = timing["per_scene"]
     if any(scene["overflow"].values()):
         raise AssertionError(f"parity: overflow {scene['overflow']}")
-    if not all(counts[k] > 0 for k in KERNELS) or any(counts[k] for k in ALL_KERNELS
-                                                      if k not in KERNELS):
+    if any(on_path(k) != (counts[k] > 0) for k in ALL_KERNELS):
         raise AssertionError(f"parity: launches {counts}")
     b4_once(counts, "parity")
     log(f"[parity] {name} ({n_vertices} vertices, {scene['points']} points, bucket "
@@ -1187,6 +1365,44 @@ def module_grad_norms(model, names):
 
     return {n: float(train_step.global_norm(p.grad for p in getattr(model, n).parameters()
                                             if p.grad is not None)) for n in names}
+
+
+def gemm_shapes(request, sh):
+    """Phase 2's gather-GEMM part: one gather request recorded
+    (``gemm_calls``), the kernel held and timed (``hold_gemm``) at every
+    conv shape it launched, then at the eval cell's 1.0 bucket
+    (``BUCKET_ROWS``: the stem's and the main k3 L1 32->32 maps repeated).
+    Returns the kernel's row of the kernels JSON (ms, plain and bound ms
+    per request: each shape's time times its calls in one request, summed)."""
+    import torch
+
+    with gemm_calls(sh) as calls:
+        request()
+        torch.cuda.synchronize()
+    rows = [hold_gemm(key, args, n) for key, (args, n) in sorted(calls.items())]
+    for key in ("main stem L0 6->32", "main k3 L1 32->32"):
+        args, _ = calls[key]
+        rows.append(dict(hold_gemm(f"{key} at the 1.0 bucket",
+                                   repeated(args, BUCKET_ROWS[int(key.split()[2][1:])]), 0),
+                         path="1.0 bucket"))
+    del calls
+
+    def total(k):
+        return sum(r["per_request"] * r[k] for r in rows)
+
+    by_ops = sum(r["per_request"] * r["bound_ms"] for r in rows if r["bound_by"] == "operations")
+    row = dict(name=GEMM, route="cuda", source=SOURCE[GEMM], replaces=TPU_KERNEL[GEMM],
+               max_abs_err=max(r["max_abs_err"] for r in rows),
+               bound_share=max(r["bound_share"] for r in rows), ms=total("ms"),
+               plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
+               bound_by="operations" if 2 * by_ops > total("bound_ms") else "bytes",
+               library_ms=None, shapes=rows)
+    log(f"[kernels] {GEMM}, per gather request ({sum(r['per_request'] for r in rows)} calls, "
+        f"{sum(1 for r in rows if r['per_request'])} shapes): kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
+        f"within the bound at every output of every shape ({row['bound_share']:.4f} of it at "
+        f"worst)")
+    return row
 
 
 def main():
@@ -1228,7 +1444,7 @@ def main():
     base_proc = base_lib_path = None
     if baseline is not None:
         base_proc, base_lib_path = start_baseline_build(baseline)
-    _build.build_all(["window_kernels", "onehot_conv"])
+    _build.build_all(["window_kernels", "onehot_conv", "gather_gemm"])
     if base_proc is not None:
         out, _ = base_proc.communicate()
         if base_proc.returncode:
@@ -1304,6 +1520,12 @@ def main():
     def request(path):
         bb = stage1(path)
         return bb, stages23(path, bb)
+
+    if argv == ["--only", GEMM]:
+        request("gather")
+        gemm_shapes(lambda: request("gather"), shapes["gather"])
+        log(f"[done] {time.time() - t_start:.1f} s ({GEMM} only: no result lines)")
+        return 0
 
     # ---- 2. capture real kernel arguments from one warm-up request each ----
     b6_calls = {}  # shape key -> (args, launches in one banded request)
@@ -1474,6 +1696,8 @@ def main():
         f"{rows[name]['plain_ms']:.3f} ms, gather conv {rows[name]['library_ms']:.4f} ms, "
         f"bound {rows[name]['bound_ms']:.4f} ms ({rows[name]['bound_by']})")
 
+    rows[GEMM] = gemm_shapes(lambda: request("gather"), shapes["gather"])
+
     # ---- 3. clustering: card vs CPU on a reduced bench scene ----
     # oracle offsets, and offsets with 4 cm of noise (more propagation
     # rounds, border points and 1-NN rows, as trained offsets make)
@@ -1549,29 +1773,30 @@ def main():
     path_launches = {p: {k: 0 for k in ALL_KERNELS} for p in PATHS}
     peak_gb = {p: 0.0 for p in PATHS}
     last = {}
+    convs = {p: 0 for p in PATHS}
     for path in ("gather", "banded", "banded", "gather", "gather", "banded"):
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         reset_launches()
-        t0 = time.perf_counter()
-        bb = stage1(path)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        out = stages23(path, bb)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
+        with conv_calls() as n_conv:
+            t0 = time.perf_counter()
+            bb = stage1(path)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = stages23(path, bb)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
         counts = launches()
         times[path].append((t2 - t0) * 1e3)
         stage_ms[path].append(((t1 - t0) * 1e3, (t2 - t1) * 1e3))
         peak_gb[path] = max(peak_gb[path], torch.cuda.max_memory_allocated() / 2**30)
         for k in ALL_KERNELS:
-            on_path = k in KERNELS or (k == "onehot_conv" and path == "banded")
-            if on_path and counts[k] <= 0:
-                raise AssertionError(f"kernel {k} was not launched on the {path} path")
-            if not on_path and counts[k]:
-                raise AssertionError(f"kernel {k} was launched on the {path} path")
+            if on_path(k, path == "banded") != (counts[k] > 0):
+                raise AssertionError(f"kernel {k} launched {counts[k]} times on the {path} path")
             path_launches[path][k] += counts[k]
         b4_once(counts, f"[main] {path} request")
+        engaged(counts, n_conv, f"[main] {path} request")
+        convs[path] = n_conv["convs"]
         last[path] = (bb, out)
 
     for path in PATHS:
@@ -1597,6 +1822,8 @@ def main():
         if tuple(out["clt_scores"].shape) != (shapes[path].cluster_cap,):
             raise AssertionError("clt_scores has the wrong shape")
         per_req = {k: v // N_REQUESTS for k, v in path_launches[path].items() if v}
+        log(f"[main] {path}: {convs[path]} sparse convs a request, each through a kernel "
+            f"(no plain forward)")
         log(f"[main] {path}: {N_REQUESTS} requests: ms/scene "
             f"{[round(t, 3) for t in times[path]]} (stage 1, stages 2-3: "
             f"{[(round(a, 3), round(b, 3)) for a, b in stage_ms[path]]}); median "
@@ -1665,7 +1892,7 @@ def main():
 
     eval_rows = data_eval_phase(card, reset_launches, launches)
     for k in ALL_KERNELS:
-        rows[k]["launches_by_path"]["data-eval"] = eval_rows[k]["launches"] if k in KERNELS else 0
+        rows[k]["launches_by_path"]["data-eval"] = eval_rows[k]["launches"] if k in eval_rows else 0
     for k in KERNELS:
         rows[k]["data_eval"] = eval_rows[k]
     parity_counts = parity_phase(card, reset_launches, launches)
@@ -1847,8 +2074,9 @@ def train_phases(card, reset_launches, launches):
             losses[ph].append(vals["loss"])
             if not all(np.isfinite(v) for v in vals.values()):
                 raise AssertionError(f"train {ph} step {i}: non-finite aux {vals}")
-            if counts["onehot_conv"]:
-                raise AssertionError(f"train {ph} step {i}: the banded conv ran under grad")
+            if counts["onehot_conv"] or counts[GEMM]:
+                raise AssertionError(f"train {ph} step {i}: a forward kernel ran under grad "
+                                     f"{counts}")
             norms = module_grad_norms(models[ph], TRAIN_MODULES[ph])
             if not all(np.isfinite(v) and v > 0 for v in norms.values()):
                 raise AssertionError(f"train {ph} step {i}: gradient norms {norms}")
@@ -2274,8 +2502,7 @@ def bottleneck_phase(card, reset_launches, launches, main_b6_keys):
         times[path].append((time.perf_counter() - t0) * 1e3)
         counts = launches()
         for k in ALL_KERNELS:
-            on_path = k in KERNELS or (k == "onehot_conv" and path == "banded")
-            if on_path != (counts[k] > 0):
+            if on_path(k, path == "banded") != (counts[k] > 0):
                 raise AssertionError(f"bottleneck {path}: kernel {k} launched {counts[k]} times")
             counts_total[k] += counts[k]
         b4_once(counts, f"bottleneck {path}")
@@ -2364,8 +2591,10 @@ def bench_phase(card):
     headline (the last stdout line) finite and > 0; in each of the 10 timed
     requests clusters > 0, zero overflow, B1-B4 launched, B4 once per
     clustering call, B6 in the banded run only, B5 never; 0 < mfu <= 1 and
-    0 < mfu_f32 <= 1; the executed operations over the GEMM family's device
-    time within the f32 peak; the production extent's ids equal the
+    0 < mfu_f32 <= 1; the executed operations over their device time by
+    route, the gather-GEMM kernel's within the bf16 tensor-core peak and the
+    rest of the GEMM family's within the f32 peak; the production extent's
+    ids equal the
     headline's; the useful count of stages 1 and 2 equal in both runs, and
     of stage 3 too where both kept the same points.  Returns {config:
     {kernel: launches over the timed requests}}."""
@@ -2388,8 +2617,7 @@ def bench_phase(card):
             n = r["launches"]
             if r["clusters"] <= 0 or r["overflow"]:
                 raise AssertionError(f"bench {config} request {r['request']}: {r}")
-            if not all(n[k] > 0 for k in KERNELS) or n["masked_window_match_pick"] or \
-                    (n["onehot_conv"] > 0) != (config == "banded"):
+            if any(on_path(k, config == "banded") != (n[k] > 0) for k in ALL_KERNELS):
                 raise AssertionError(f"bench {config} request {r['request']}: launches {n}")
             b4_once(n, f"bench {config} request {r['request']}")
             for k in ALL_KERNELS:
@@ -2397,10 +2625,14 @@ def bench_phase(card):
         w, peaks = sup["work"], sup["peaks"]
         if not (0 < w["mfu"] <= 1 and 0 < w["mfu_f32"] <= 1):
             raise AssertionError(f"bench {config}: mfu {w['mfu']}, mfu_f32 {w['mfu_f32']}")
-        if not 0 < w["executed_flops_per_s"] <= peaks["f32_flops"]:
-            raise AssertionError(f"bench {config}: {w['executed_ops']} executed operations in "
-                                 f"{w['gemm_device_ms']} ms of GEMMs exceed the f32 peak: a "
-                                 f"counting fault")
+        fused, other = w["gemm_by_route"]["gather_gemm"], w["gemm_by_route"]["other"]
+        for part, peak in ((fused, peaks["bf16_flops"]), (other, peaks["f32_flops"])):
+            if part["executed_ops"] and not 0 < (part["flops_per_s"] or 0) <= peak:
+                raise AssertionError(f"bench {config}: {part['executed_ops']} executed "
+                                     f"operations in {part['device_ms']} ms exceed the peak "
+                                     f"{peak:.3e}: a counting fault ({w['gemm_by_route']})")
+        if not fused["executed_ops"]:
+            raise AssertionError(f"bench {config}: no gather conv counted")
         if not sup["production_extent"]["ids_equal_headline"]:
             raise AssertionError(f"bench {config}: production-extent ids differ")
         runs[config] = sup
@@ -2411,8 +2643,11 @@ def bench_phase(card):
             f"{tr['busy_ms']:.3f} ms, idle share {tr['idle_share']:.3f}; production extent "
             f"{sup['production_extent']['median_ms']:.3f} ms (ids equal); useful "
             f"{w['useful_ops']} operations (stage 1 share {w['stage1_useful_share']:.3f}), "
-            f"executed {w['executed_ops']} in {w['gemm_device_ms']:.3f} ms of GEMMs "
-            f"({w['executed_flops_per_s'] / 1e12:.3f} TFLOP/s); mfu {w['mfu']:.3e}, mfu_f32 "
+            f"executed in {w['gemm_device_ms']:.3f} ms of GEMMs: gather-GEMM "
+            f"{fused['executed_ops']} in {fused['device_ms']:.3f} ms "
+            f"({fused['flops_per_s'] / 1e12:.3f} TFLOP/s), other {other['executed_ops']} in "
+            f"{other['device_ms']:.3f} ms ({(other['flops_per_s'] or 0) / 1e12:.3f} TFLOP/s); "
+            f"mfu {w['mfu']:.3e}, mfu_f32 "
             f"{w['mfu_f32']:.3e}; train step {t['median_ms']:.3f} ms, peak {t['peak_gib']:.3f} "
             f"GiB; launches per request {reqs[-1]['launches']}; kernel builds "
             f"{sup['build_s'] or 'none'}; {secs:.1f} s; card {card}")
@@ -2468,8 +2703,8 @@ def overfit_phase(card, reset_launches, heldout=False):
     """Phases 19 [overfit] and 20 [overfit-heldout]: ``overfit.run`` on the
     card (memorised, or with ``heldout``) under tests/test_overfit.py's
     gates; every full step and every evaluated scene launched each of B1-B4
-    (B4 once per clustering call) and neither B5 nor B6, with every
-    overflow counter 0; B1-B4 exact against their plain versions at every
+    (B4 once per clustering call) and neither B5 nor B6, every evaluated
+    scene the gather-GEMM and no full step, with every overflow counter 0; B1-B4 exact against their plain versions at every
     call of the last full step and the last evaluate.  Returns ({kernel:
     launches over the last round of full steps and the last evaluate},
     {kernel: record of ``hold_calls``})."""
@@ -2492,17 +2727,14 @@ def overfit_phase(card, reset_launches, heldout=False):
               and r.get("AP25", 0.0) >= 0.9 and r.get("mAP", 0.0) > 0.0)
     if not ok:
         raise AssertionError(f"{tag}: the bar is missed: {r}")
-    on_path = set(KERNELS)
     for i, (n, over) in enumerate(zip(rec["full_step_launches"], rec["full_step_overflow"])):
-        if any((n[k] > 0) != (k in on_path) for k in ALL_KERNELS) or any(over.values()):
+        if any((n[k] > 0) != on_path(k, train=True) for k in ALL_KERNELS) or any(over.values()):
             raise AssertionError(f"{tag} full step {i}: launches {n}, overflow {over}")
         b4_once(n, f"{tag} full step {i}")
     for j, ev in enumerate(rec["evaluations"]):
-        if ev["launches_after"]["onehot_conv"] != ev["launches_before"]["onehot_conv"]:
-            raise AssertionError(f"{tag} evaluate {j}: the banded conv ran")
         for s in ev["timing"]["per_scene"]:
             n, over = s["launches"], s["overflow"]
-            if any((n[k] > 0) != (k in on_path) for k in n) or any(over.values()):
+            if any((n[k] > 0) != on_path(k) for k in ALL_KERNELS) or any(over.values()):
                 raise AssertionError(f"{tag} evaluate {j} {s['fn']}: launches {n}, "
                                      f"overflow {over}")
             b4_once(n, f"{tag} evaluate {j} {s['fn']}")
@@ -2532,9 +2764,10 @@ def overfit_phase(card, reset_launches, heldout=False):
         f"full {statistics.median(rec['full_step_ms']):.3f}; seconds "
         f"{ {k: round(v, 2) for k, v in r['seconds'].items()} }; last evaluate: prop_rounds "
         f"per scene {rounds}, B4 needy rows per call {needy}, launches per scene "
-        f"{[{k: s['launches'][k] for k in KERNELS} for s in scenes]}; launches over the last "
-        f"round and evaluate { {k: counts[k] for k in KERNELS} }; B1-B4 in every full step "
-        f"and evaluated scene, zero overflow; card {card}")
+        f"{[{k: s['launches'][k] for k in KERNELS + (GEMM,)} for s in scenes]}; launches over "
+        f"the last round and evaluate { {k: counts[k] for k in KERNELS + (GEMM,)} }; B1-B4 in "
+        f"every full step and evaluated scene, the gather-GEMM in every evaluated scene and no "
+        f"full step, zero overflow; card {card}")
     rows = hold_calls(tag, tag, "the last full step and evaluate", held, card)
     del held
     log(f"[{tag}] phase {time.time() - t_phase:.1f} s")

@@ -4,8 +4,9 @@ A port of ``pbnet_tpu`` (JAX/XLA/Pallas), laid out the same way so each
 module has an obvious counterpart:
 
   core/     coordinate keys, quantization, coordinate pyramids + kernel maps
-  nn/       sparse conv (kernel-map gather + GEMM), masked norms, MinkUNets
-            (basic and bottleneck blocks), the ResNet/ResFieldNet classifiers
+  nn/       sparse conv (kernel-map gather + GEMM; on the card one fused
+            kernel, csrc/gather_gemm.cu), masked norms, MinkUNets (basic and
+            bottleneck blocks), the ResNet/ResFieldNet classifiers
   ops/      clustering; its four banded-window passes are CUDA kernels
             (ops/window_kernels.py, csrc/window_kernels.cu)
   models/   the three-stage PBNet forward and its losses

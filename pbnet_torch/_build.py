@@ -7,9 +7,9 @@ interface (no PyTorch headers, so a build takes seconds), for ``sm_90a``:
          -shared -Xcompiler -fPIC -o <build>/<name>-<hash>.so csrc/<name>.cu
 
 The library lands in ``pbnet_torch/_build/`` (git-ignored) under a name that
-carries the hash of the source and the flags, so an edited source rebuilds
-at its next use.  Builds happen on first use, never at import.  A failing
-nvcc raises.
+carries the hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header rebuilds at its next use.  Builds
+happen on first use, never at import.  A failing nvcc raises.
 
 Every kernel wrapper checks its tensors with :func:`check`, passes them as
 :func:`ptr`, and launches through :func:`launch`, which raises on a refused
@@ -53,7 +53,8 @@ def find_nvcc() -> str:
 
 def _target(name: str) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    h = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return src, BUILD_DIR / f"{name}-{h}.so"
 
 

@@ -19,8 +19,9 @@ a time.  A request's time is the host clock from its start to after the
 counts and the overflow counters on the host; CUDA events split it into
 stage 1 (``PBNet.backbone``) and stages 2-3 (``instance_stage``).  Each
 timed request gets one ``bench-request {json}`` line on stderr with its
-times and its kernel launches (``ops/window_kernels.LAUNCHES`` and
-``nn/onehot_conv.LAUNCHES``, zeroed just before it).  Clusters > 0,
+times and its kernel launches (``ops/window_kernels.LAUNCHES``,
+``nn/onehot_conv.LAUNCHES`` and ``nn/sparse_ops.LAUNCHES``, zeroed just
+before it).  Clusters > 0,
 proposals > 0 and zero overflow are required; anything else raises.
 
 stdout holds one line, the headline in the JAX bench's schema plus the
@@ -41,8 +42,9 @@ After it, the supplementary phases (a failure raises, after the headline):
   operations, by stage (stage 3's follow the kept points); ``mfu`` =
   useful / median wall / the card's dense bf16 peak (the conv operands are
   bf16), ``mfu_f32`` = the same against the f32 peak outside the tensor
-  cores (the products run in f32); the executed operations over the GEMM
-  family's device time; stage 1's share;
+  cores; the executed operations over the GEMMs' device time, by route:
+  the gather-GEMM kernel's (its padded count, bf16 tensor cores) and the
+  rest of the GEMM family's (the dense layers' f32 GEMMs); stage 1's share;
 * train step: the full step (with instances and labels, Adam at lr 1e-3)
   through ``parallel/train_step.make_train_step``, 1 warm-up and 3 timed
   steps, and its peak device memory.
@@ -73,7 +75,7 @@ import torch
 from . import _build, resolve_device, synthetic
 from .config import Config
 from .models.pbnet import PBNet, batch_to_device
-from .nn import onehot_conv
+from .nn import onehot_conv, sparse_ops
 from .ops import window_kernels
 from .parallel import train_step
 from .tools import work
@@ -145,10 +147,11 @@ def card_line() -> str:
 def reset_launches() -> None:
     window_kernels.reset_launches()
     onehot_conv.reset_launches()
+    sparse_ops.reset_launches()
 
 
 def launches() -> dict:
-    return {**window_kernels.LAUNCHES, **onehot_conv.LAUNCHES}
+    return {**window_kernels.LAUNCHES, **onehot_conv.LAUNCHES, **sparse_ops.LAUNCHES}
 
 
 def request(model: PBNet, batch: dict, oracle, split=None):
@@ -233,8 +236,9 @@ def trace_requests(request, n, tag="trace", split_backward=False, log=log) -> di
     With ``split_backward`` the gathers and GEMMs that the backward launched
     (kernels of CPU ops under the autograd engine) are families of their
     own.  Busy is the union of the device intervals.  Returns
-    ``{"wall_ms", "busy_ms", "idle_share", "by_family_ms"}`` (per request,
-    profiler on)."""
+    ``{"wall_ms", "busy_ms", "idle_share", "by_family_ms",
+    "gather_gemm_ms"}`` (per request, profiler on; the last is the
+    gather-GEMM kernel's part of the ``gemm`` family)."""
     from collections import defaultdict
 
     from torch.profiler import ProfilerActivity, profile
@@ -273,6 +277,8 @@ def trace_requests(request, n, tag="trace", split_backward=False, log=log) -> di
         raise RuntimeError("the profiler recorded no device activity")
     total_us = sum(by_family.values())
     busy_ms = union_us / 1e3 / n
+    fused_us = (sum(end - start for name, start, end in dev_events if "gather_gemm" in name)
+                if dev_events else sum(us for name, us, _ in linked if "gather_gemm" in name))
     if split_backward:
         # the backward's kernels, found through the CPU op that launched
         # each (the package's own CUDA kernels go through ctypes and have
@@ -296,10 +302,17 @@ def trace_requests(request, n, tag="trace", split_backward=False, log=log) -> di
             f"({us / total_us:6.1%} of device time)")
     log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15))
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
-            "by_family_ms": {f: us / 1e3 / n for f, us in by_family.items()}}
+            "by_family_ms": {f: us / 1e3 / n for f, us in by_family.items()},
+            "gather_gemm_ms": fused_us / 1e3 / n}
 
 
 STAGE_OF = (("MEUnet", "stage 1"), ("D_Unet", "stage 2"), ("score_Unet", "stage 3"))
+
+
+def rate(ops: int, ms: float) -> dict:
+    """Executed operations, their device ms per request and their rate."""
+    return {"executed_ops": ops, "device_ms": ms,
+            "flops_per_s": ops / (ms * 1e-3) if ms > 0 else None}
 
 
 def count_work(model: PBNet, batch: dict, oracle) -> tuple[work.WorkCount, dict]:
@@ -447,10 +460,18 @@ def main(argv=None) -> int:
     del out
     if cuda:
         gemm_ms = res["trace"]["by_family_ms"].get("gemm", 0.0)
+        fused_ms = res["trace"]["gather_gemm_ms"]
+        # the gather convs ran the kernel (no gradients, bf16 operands): its
+        # padded count; the dense layers ran the rest of the family
+        fused_ops = sum(sparse_ops.gemm_executed_ops(l.rows, sparse_ops.gemm_tiling(l.k, l.cin,
+                                                                                  l.cout))
+                        for l in wc.layers if l.route == "gather")
+        dense_ops = sum(l.executed for l in wc.layers if l.route == "dense")
         w.update(mfu=w["useful_ops"] / (median_ms * 1e-3) / peaks.bf16_flops,
                  mfu_f32=w["useful_ops"] / (median_ms * 1e-3) / peaks.f32_flops,
                  gemm_device_ms=gemm_ms,
-                 executed_flops_per_s=w["executed_ops"] / (gemm_ms * 1e-3) if gemm_ms else None)
+                 gemm_by_route={"gather_gemm": rate(fused_ops, fused_ms),
+                                "other": rate(dense_ops, gemm_ms - fused_ms)})
     res["work"] = w
     log(f"[bench] work of one request: {json.dumps(w)}; peaks {res['peaks']} at "
         f"{peaks.watts if peaks else None} W, card power limit {power}")

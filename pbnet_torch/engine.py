@@ -35,12 +35,12 @@ import torch
 import torch.distributed as dist
 
 from . import resolve_device, telemetry
+from .bench import launches
 from .config import Config
 from .data.dataset import Dataset
 from .eval_pipeline import eval_scene_instances
 from .models.pbnet import PBNet, batch_to_device
 from .nn.modules import set_bn_group
-from .ops import window_kernels
 from .parallel import distributed, mesh
 from .parallel.train_step import (cosine_lr_after_step, make_eval_step, make_optimizer,
                                   make_train_step)
@@ -170,8 +170,9 @@ def evaluate(cfg: Config, model: PBNet, dataset, epoch, logger=None, writer=None
     (``bucket_compile_s``: the first forward's seconds per bucket;
     ``bucket_scene_counts``, ``wall_s``, ``scenes``, ``compile_s``,
     ``scenes_per_sec``, ``scenes_per_sec_warm``) and ``per_scene``: for each
-    scene its name, points, voxels, bucket, overflow counters, clustering
-    kernel launches, collate seconds, forward ms (to the outputs on the
+    scene its name, points, voxels, bucket, overflow counters, kernel
+    launches (``bench.launches()``: clustering, gather-GEMM and banded conv),
+    collate seconds, forward ms (to the outputs on the
     host), peak device memory of the forward in GiB (None on the CPU),
     host-eval seconds and proposals.
     """
@@ -290,13 +291,13 @@ def evaluate(cfg: Config, model: PBNet, dataset, epoch, logger=None, writer=None
                          dataset.val_loader(max_scenes=n_scenes, rank=rank, world=world))
             for i, batch in scenes:
                 step, bk, new = buckets.get(batch.get("shapes", cfg.shapes))
-                before = dict(window_kernels.LAUNCHES)
+                before = launches()
                 if dev.type == "cuda":
                     torch.cuda.reset_peak_memory_stats(dev)
                 t0 = time.perf_counter()
                 ret = step(device_batch(batch, dev))
                 fwd_s = time.perf_counter() - t0
-                after = dict(window_kernels.LAUNCHES)
+                after = launches()
                 peak = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else None
                 if new:
                     local_timing.setdefault("bucket_compile_s", {})[bk] = round(fwd_s, 1)

@@ -23,11 +23,23 @@ both ranks bit-identical on each device, aux within rtol 1e-4, the
 averaged gradients (Adam's first moments) within 1e-3 of each tensor's
 scale, BN statistics within 1e-3.
 
+The gather conv's fused forward (``sparse_ops.gather_gemm``) against its
+plain version at every (K, Cin, Cout) class the three networks run (the
+stem 125 x 6 -> 32 and the D_Unet's 125 x 34, 27 x 32-256, 8-offset
+strided and transposed maps, 1x1) and at ragged edges (rows and columns
+not a multiple of the tile, Cout 45 and 200), with a bias and without, on
+maps with absent entries, all-absent (tile, offset) blocks and padding
+rows: every output within ``gemm_error_bound`` (two summation orders of the
+same f32 sum: ``2 n 2^-24 sum |x||w|``, n = K * Cin), rows with valid_out
+false exactly 0, one counted launch per call, a repeat equal bit for bit;
+bad input raises.
+
 Training on the card: the gather conv's backward (the transposed-map gather
 and its GEMMs) and train-mode BN against the same code on the CPU, within
 1e-3 of each gradient's largest magnitude (the index backwards on the card
-add with atomics, in another order), and a banding plan refused where a
-gradient is wanted.
+add with atomics, in another order), with the bf16 forward through the
+fused kernel (f32 operands keep the plain forward), and a banding plan
+refused where a gradient is wanted.
 
 This file imports neither JAX nor pbnet_tpu, so it runs on a machine that
 has only the port's dependencies:
@@ -331,6 +343,79 @@ def test_onehot_conv_tilings(dev, monkeypatch, sms, m_out, K, kz, cin, cout, spa
     assert float(got.abs().max()) > 0
 
 
+def gemm_check(feats, kmap, w, valid, bias=None):
+    """Two gather-GEMM launches against the plain version: within
+    ``gemm_error_bound`` at every output, exact zeros where valid_out is
+    false, one counted launch per call, the two equal bit for bit."""
+    before = so.LAUNCHES["gather_gemm"]
+    got = so.gather_gemm(feats, kmap, w, valid, bias)
+    again = so.gather_gemm(feats, kmap, w, valid, bias)
+    torch.cuda.synchronize()
+    assert so.LAUNCHES["gather_gemm"] == before + 2
+    want = so._conv_fwd(feats, kmap, w, valid, bias)
+    err, tol = (got - want).abs(), so.gemm_error_bound(feats, kmap, w)
+    assert bool((err <= tol).all()), f"{int((err > tol).sum())} outputs outside the bound"
+    assert torch.equal(got[~valid], torch.zeros_like(got[~valid]))
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    return got
+
+
+# (K, map kind, m_out, m_in, Cin, Cout, bias): every class of the three
+# networks, rows not a multiple of the 128- or 64-row block, Cout 45 (odd
+# columns) and 200 (two column strips, the second ragged)
+@pytest.mark.parametrize("K,kind,m_out,m_in,cin,cout,bias", [
+    (125, "stem", 1000, 1000, 6, 32, False),
+    (125, "stem", 333, 333, 34, 32, True),
+    (27, "k3", 1000, 1000, 32, 32, True),
+    (27, "k3", 777, 777, 64, 64, False),
+    (27, "k3", 600, 600, 128, 128, True),
+    (27, "k3", 300, 300, 256, 256, False),
+    (27, "k3", 513, 513, 96, 45, True),
+    (27, "k3", 513, 513, 80, 200, False),
+    (8, "down", 400, 1200, 32, 32, True),
+    (8, "up", 1200, 400, 128, 96, False),
+    (1, "1x1", 500, 1000, 64, 128, True),
+])
+def test_gather_gemm_matches_plain(dev, K, kind, m_out, m_in, cin, cout, bias):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(K + m_out + cin + cout)
+    kz = {125: 5, 27: 3, 8: 2, 1: 1}[K]
+    km = banded_map(rng, m_out, m_in, K, kz, 40)
+    km[:128, 4:10] = -1   # offsets no row of the first block reads
+    if K > 1:
+        km[:, K // 2] = -1  # an offset no row reads at all
+    km[m_out - 9:] = -1   # padding rows: nothing present, valid_out false
+    valid = rng.rand(m_out) < 0.9
+    valid[m_out - 9:] = False
+    valid[64:192] = False  # a whole block of rows with valid_out false
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    feats = t(rng.randn(m_in, cin).astype(np.float32))
+    w = t((rng.randn(K, cin, cout) * 0.1).astype(np.float32))
+    b = t(rng.randn(cout).astype(np.float32)) if bias else None
+    got = gemm_check(feats, t(km), w, t(valid), b)
+    assert float(got.abs().max()) > 0
+
+
+def test_gather_gemm_rejects_bad_input(dev):
+    rng = np.random.RandomState(3)
+    km = torch.from_numpy(banded_map(rng, 256, 256, 27, 3, 20)).to(dev)
+    feats = torch.randn(256, 32, device=dev)
+    w = torch.randn(27, 32, 64, device=dev)
+    valid = torch.ones(256, dtype=torch.bool, device=dev)
+    before = so.LAUNCHES["gather_gemm"]
+    with pytest.raises(TypeError):
+        so.gather_gemm(feats.double(), km, w, valid)
+    with pytest.raises(TypeError):
+        so.gather_gemm(feats, km.long(), w, valid)
+    with pytest.raises(ValueError):
+        so.gather_gemm(torch.randn(256, 64, device=dev)[:, ::2], km, w, valid)
+    with pytest.raises(ValueError):
+        so.gather_gemm(feats, km, w.cpu(), valid)
+    with pytest.raises(ValueError):
+        so.gather_gemm(feats, km, w, valid[:100])
+    assert so.LAUNCHES["gather_gemm"] == before
+
+
 def test_border_edge_rows(dev):
     """B3 and B5 exact at the bench window W = 4096 (64 KB of staged pairs)
     on all-ones words, all-zero rows, rows whose set columns all have
@@ -480,7 +565,10 @@ def test_conv_backward_matches_cpu(dev, kind):
     """The transposed-map backward on the card against the CPU plain
     autograd (a scatter-add) on maps with -1 entries and padding rows, with
     f32 operands; with bf16 operands against the same backward on the CPU
-    (the plain autograd rounds dx to bf16 where this backward rounds dy)."""
+    (the plain autograd rounds dx to bf16 where this backward rounds dy).
+    A training step keeps the plain forward (no kernel launch); with
+    gradients off the bf16 forward is the fused kernel, within the same
+    tolerance of the training forward."""
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.RandomState(len(kind))
     m_fine, m_coarse = 600, 200
@@ -504,6 +592,7 @@ def test_conv_backward_matches_cpu(dev, kind):
     for dtype in (torch.float32, torch.bfloat16):
         old = so.COMPUTE_DTYPE
         so.COMPUTE_DTYPE = dtype
+        before = so.LAUNCHES["gather_gemm"]
         try:
             out = []
             for device, bwd in ((dev, kb), ("cpu", None if dtype == torch.float32 else kb)):
@@ -514,8 +603,15 @@ def test_conv_backward_matches_cpu(dev, kind):
                                    kmap_bwd=None if bwd is None else t(bwd))
                 y.backward(t(dy))
                 out.append((y, f.grad, ww.grad))
+            assert so.LAUNCHES["gather_gemm"] == before
+            with torch.no_grad():
+                y_eval = so.gather_conv(*(torch.from_numpy(a).to(dev)
+                                          for a in (feats, km, w, valid)))
         finally:
             so.COMPUTE_DTYPE = old
+        # with gradients off: the fused kernel in bf16, the plain ops in f32
+        assert so.LAUNCHES["gather_gemm"] == before + (dtype == torch.bfloat16)
+        grad_close(y_eval, out[0][0])
         for g, c in zip(*out):
             grad_close(g, c)
 
