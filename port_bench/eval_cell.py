@@ -32,7 +32,7 @@ import torch
 from torch.profiler import record_function
 
 from . import check, spec, weights, window
-from .weights import arch_kw
+from .weights import arch_kw, port_kw
 from .reference import collate as ref_collate
 from .reference import eval_pipeline as ref_eval
 from .reference.models import pbnet as ref_pbnet
@@ -90,7 +90,7 @@ class Program:
             nb = ds._collate(scenes, buckets=pcfg.eval_buckets())
             sh = nb["shapes"]
             if sh not in self.models:
-                m = PBNet(sh, device=device, **arch_kw(cfg))
+                m = PBNet(sh, device=device, **port_kw(cfg))
                 m.load_state_dict(wts)
                 self.models[sh] = m.eval()
             batch = {k: torch.as_tensor(nb[k]).to(device) for k in self.KEYS}

@@ -3,7 +3,7 @@
 out: every conv is a gather and an f32 GEMM, every clustering pass its plain
 PyTorch version).
 
-stage 1  backbone MinkUNet (6 -> 32) + semantic/offset heads, voxel->point
+stage 1  backbone UNet (6 -> 32) + semantic/offset heads, voxel->point
          gather
 stage 2  per-class gate, clustering (ops/cluster), cluster K-NN local scenes
          assembled with a ragged gather, re-voxelized, D_Unet mask branch,
@@ -26,7 +26,8 @@ from torch import nn
 from ..core import coords as ck
 from ..core import quantize as qz
 from ..core import topology as tp
-from ..nn import minkunet, sparse_ops
+from .. import backbones
+from ..nn import sparse_ops
 from ..nn.modules import MLPHead
 from ..ops import cluster as cluster_ops
 
@@ -84,9 +85,14 @@ def _no_grad_in_eval(fn):
 class PBNet(nn.Module):
     """The three-stage forward.  Parameters are made on ``device`` from a
     seeded ``torch.Generator``; the benchmark loads its own weights over
-    them.  The model starts in eval mode."""
+    them.  The model starts in eval mode.
 
-    def __init__(self, shapes, sem_num: int = 20,
+    Each of the three UNets is built from its spec in ``archs`` (name ->
+    spec) by the spec's family (``backbone_families``: family name ->
+    module; ``backbones.build``); ``families`` maps each UNet's attribute
+    to its family module."""
+
+    def __init__(self, shapes, *, archs: dict, backbone_families: dict, sem_num: int = 20,
                  voxel_size: float = 0.02, scale_size: float = 1.0,
                  radius: float = 0.04, min_pts: int = 31,
                  backbone_arch: str = "MinkUNet34C", dunet_arch: str = "MinkUNet14A",
@@ -103,9 +109,12 @@ class PBNet(nn.Module):
         self.scale_size = scale_size
         self.radius = radius
         self.min_pts = min_pts
-        self.MEUnet = minkunet.mink_unet(6, 32, backbone_arch, **kw)
-        self.D_Unet = minkunet.mink_unet(34, 32, dunet_arch, **kw)
-        self.score_Unet = minkunet.mink_unet(32, 32, score_arch, **kw)
+        unet = dict(archs=archs, families=backbone_families, **kw)
+        self.families = {}
+        for attr, cin, arch in (("MEUnet", 6, backbone_arch), ("D_Unet", 34, dunet_arch),
+                                ("score_Unet", 32, score_arch)):
+            net, self.families[attr] = backbones.build(cin, 32, arch, **unet)
+            setattr(self, attr, net)
         self.linear_sem = MLPHead(32, 16, sem_num, **kw)
         self.linear_offset = MLPHead(32, 16, 3, **kw)
         self.linear_binary = MLPHead(32, 16, 1, final_sigmoid=True, **kw)

@@ -82,29 +82,3 @@ class MinkUNetBase(nn.Module):
             x = self._blocks(f"block{5+d}", self.layers[4 + d], x, topo.k3_maps[lvl], v[lvl])
         return self.final(x, v[0])
 
-
-# Architecture registry mirroring Mink_unet(arch=...)
-ARCHS = {
-    "MinkUNet14A": dict(layers=(1,) * 8, planes=(32, 64, 128, 256, 128, 128, 96, 96), block="basic"),
-    "MinkUNet14B": dict(layers=(1,) * 8, planes=(32, 64, 128, 256, 128, 128, 128, 128), block="basic"),
-    "MinkUNet14C": dict(layers=(1,) * 8, planes=(32, 64, 128, 256, 192, 192, 128, 128), block="basic"),
-    "MinkUNet14D": dict(layers=(1,) * 8, planes=(32, 64, 128, 256, 384, 384, 384, 384), block="basic"),
-    "MinkUNet18A": dict(layers=(2,) * 8, planes=(32, 64, 128, 256, 128, 128, 96, 96), block="basic"),
-    "MinkUNet18B": dict(layers=(2,) * 8, planes=(32, 64, 128, 256, 128, 128, 128, 128), block="basic"),
-    "MinkUNet18D": dict(layers=(2,) * 8, planes=(32, 64, 128, 256, 384, 384, 384, 384), block="basic"),
-    "MinkUNet34A": dict(layers=(2, 3, 4, 6, 2, 2, 2, 2), planes=(32, 64, 128, 256, 256, 128, 64, 64), block="basic"),
-    "MinkUNet34B": dict(layers=(2, 3, 4, 6, 2, 2, 2, 2), planes=(32, 64, 128, 256, 256, 128, 64, 32), block="basic"),
-    "MinkUNet34C": dict(layers=(2, 3, 4, 6, 2, 2, 2, 2), planes=(32, 64, 128, 256, 256, 128, 96, 96), block="basic"),
-    "MinkUNet50": dict(layers=(2, 3, 4, 6, 2, 2, 2, 2), planes=(32, 64, 128, 256, 256, 128, 96, 96), block="bottleneck"),
-    "MinkUNet101": dict(layers=(2, 3, 4, 23, 2, 2, 2, 2), planes=(32, 64, 128, 256, 256, 128, 96, 96), block="bottleneck"),
-}
-
-
-def mink_unet(in_channels: int, out_channels: int, arch: str = "MinkUNet18A",
-              generator: torch.Generator | None = None, device=None) -> nn.Module:
-    """Factory matching PBNet's Mink_unet(); the network starts in eval
-    mode."""
-    if arch not in ARCHS:
-        raise ValueError(f"architecture {arch} not supported")
-    return MinkUNetBase(in_channels, out_channels, generator=generator,
-                        device=device, **ARCHS[arch]).eval()

@@ -47,3 +47,17 @@ def test_a_stall_moves_the_rate_and_the_tail():
     assert window.percentile(stalled["latency_s"], 90) > window.percentile(steady["latency_s"], 90)
     # a median of chunks would hide it
     assert abs(sorted(stalled["latency_s"])[len(stalled["latency_s"]) // 2] - 0.4) < 1e-9
+
+
+def test_work_left_in_flight_at_the_close_counts_inside_the_window():
+    clock = Clock()
+
+    def send(i):
+        clock.t += 0.5
+
+    def finish():
+        clock.t += 0.7
+
+    w = window.closed_loop(send, 10.0, clock, finish=finish)
+    assert len(w["latency_s"]) == 20 and abs(w["seconds"] - 10.7) < 1e-9
+    assert abs(window.rate(w) - 20 / 10.7) < 1e-12

@@ -31,3 +31,16 @@ def test_dense_layers_count_their_valid_rows_and_stages_apart():
         wc.stage = "two"
         work.dense(valid, 4, 3)
     assert wc.ops() == 2 * (2 * 4 * 3 * 2) and wc.ops("two") == 2 * 4 * 3 * 2
+
+
+def test_attention_counts_the_keys_of_valid_query_rows():
+    valid = torch.tensor([True, True, False, True])
+    with work.WorkCount(operand_bytes=2) as wc:
+        work.attention(valid, torch.tensor([3, 1, 4, 2]), heads=2, head_dim=8)
+        wc.stage = "two"
+        work.attention(valid, 5, heads=2, head_dim=8)
+    # keys on valid rows: 3 + 1 + 2; QK^T and AV: 4 * head_dim * heads per key
+    assert wc.ops() - wc.ops("two") == 4 * 6 * 8 * 2
+    assert wc.ops("two") == 4 * 15 * 8 * 2
+    # Q, K and V of the 3 valid rows read once, their output written once, 16 bf16 a row
+    assert wc.bytes("two") == 4 * 3 * 16 * 2

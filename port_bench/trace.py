@@ -53,8 +53,9 @@ def _in_backward(event) -> bool:
     return False
 
 
-def traced(run, n: int) -> dict:
-    """Profile ``run(i)`` for i < n, one after another, and reduce the trace.
+def traced(run, n: int, finish=None) -> dict:
+    """Profile ``run(i)`` for i < n, one after another, then ``finish()``
+    (what ``run`` left in flight), and reduce the trace.
     Returns ``{"window_s", "busy_s", "by_family_s", "backward_s",
     "device_ops", "idle_gaps"}`` (seconds over the whole traced window)."""
     from torch.profiler import ProfilerActivity, profile
@@ -64,6 +65,8 @@ def traced(run, n: int) -> dict:
         t0 = time.perf_counter()
         for i in range(n):
             run(i)
+        if finish is not None:
+            finish()
         torch.cuda.synchronize()
         window_s = time.perf_counter() - t0
     events = prof.events()

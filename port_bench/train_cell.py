@@ -44,7 +44,7 @@ import torch
 from torch.profiler import record_function
 
 from . import rooms, spec, window
-from .weights import arch_kw
+from .weights import arch_kw, port_kw
 
 STAGE1_KEYS = ("sem_pred_p", "sem_pred_score_p", "offset_pred_p", "point_ok", "overflow_vox",
                "overflow_grid", "overflow_band")
@@ -52,6 +52,7 @@ BETA1 = 0.9
 STILL = 1e-3  # reference gradient under this share of the median leaf's: round-off
 # the loss terms a step reports; the first step's stage-1 terms are compared
 TERMS = ("loss", "semantic_loss", "offset_norm_loss", "offset_dir_loss")
+AHEAD = 1  # window steps sent before the oldest one's row is read
 
 
 def oracle_tensors(batch: list, point_cap: int, device):
@@ -92,7 +93,7 @@ class Program:
             t = {k: torch.as_tensor(nb[k]).to(device) for k in self.KEYS}
             t["oracle"] = oracle_tensors(b, self.cfg.shapes.point_cap, device)
             self.batches.append(t)
-        self.model = PBNet(self.cfg.shapes, device=device, **arch_kw(cfg))
+        self.model = PBNet(self.cfg.shapes, device=device, **port_kw(cfg))
         self.model.load_state_dict(wts)
         if group is not None:
             set_bn_group(self.model, group)
@@ -101,6 +102,20 @@ class Program:
     def __call__(self, b: int, fault=None, keep_stage1: bool = False) -> dict:
         """One train step on batch ``b``; returns its loss terms, gradient
         norm and overflow on the host (and, if asked, its stage-1 outputs)."""
+        return self.read(self.issue(b, fault, keep_stage1))
+
+    @staticmethod
+    def read(sent: tuple) -> dict:
+        """The host row of a step that ``issue`` sent (waits for the step)."""
+        vals, stage1 = sent
+        vals = vals.tolist()
+        row = dict(zip(TERMS, vals))
+        row.update(grad_norm=vals[-3], overflow=vals[-2], clusters=int(vals[-1]), stage1=stage1)
+        return row
+
+    def issue(self, b: int, fault=None, keep_stage1: bool = False) -> tuple:
+        """Send one train step on batch ``b`` to the device; returns what
+        ``read`` takes, still on the device (nothing waits for the step)."""
         from pbnet_torch.models import losses
         from pbnet_torch.parallel import train_step
 
@@ -127,13 +142,11 @@ class Program:
                 aux = train_step.finish_step(model, self.opt, self.cfg, aux, self.cfg.lr,
                                              self.group)
         over = sum(v for k, v in aux.items() if k.startswith("overflow"))
-        vals = torch.stack([aux[k].detach().to(loss.device) for k in TERMS]
-                           + [aux["grad_norm"].to(loss.device), over.to(loss.device)]).tolist()
-        row = dict(zip(TERMS, vals))
-        row.update(grad_norm=vals[-2], overflow=vals[-1],
-                   clusters=int(ret["cluster"].num_clusters),
-                   stage1=stage1_outputs(bb) if keep_stage1 else None)
-        return row
+        dev = loss.device
+        vals = torch.stack([aux[k].detach().float().to(dev) for k in TERMS]
+                           + [aux["grad_norm"].float().to(dev), over.float().to(dev),
+                              torch.as_tensor(ret["cluster"].num_clusters).float().to(dev)])
+        return vals, stage1_outputs(bb) if keep_stage1 else None
 
     def grad_norms_after_first(self) -> dict:
         """Each leaf's gradient norm as Adam holds it after one step."""
@@ -361,10 +374,18 @@ def run(cell, seed: int, seconds: float, trace: bool, device, log, fault=None,
     log(f"[set-up] {setup_s:.3f} s: {len(batches)} batches; check steps "
         f"{[(round(r['loss'], 5), r['clusters'], r['overflow']) for r in rows]}")
 
-    steps = []
+    steps, sent = [], []
 
     def send(k):
-        steps.append(prog(ranks.pick(n_check + k, len(batches)), fault))
+        # a step's row is read once the next step is sent: the host issues
+        # step k+1's forward while the device still runs step k's backward
+        sent.append(prog.issue(ranks.pick(n_check + k, len(batches)), fault))
+        if len(sent) > AHEAD:
+            steps.append(prog.read(sent.pop(0)))
+
+    def finish():
+        while sent:
+            steps.append(prog.read(sent.pop(0)))
 
     if cuda:
         torch.cuda.reset_peak_memory_stats()
@@ -372,10 +393,10 @@ def run(cell, seed: int, seconds: float, trace: bool, device, log, fault=None,
     if trace:
         from . import trace as tr_mod
 
-        record["trace"] = tr_mod.traced(send, len(batches))
+        record["trace"] = tr_mod.traced(send, len(batches), finish)
         record["requests"] = len(steps)
     else:
-        record["window"] = window.closed_loop(send, seconds, agree=ranks.agree)
+        record["window"] = window.closed_loop(send, seconds, agree=ranks.agree, finish=finish)
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     bad = [r for r in rows + steps if r["overflow"] or r["clusters"] <= 0
            or not np.isfinite(r["loss"])]
